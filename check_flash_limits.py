@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Hold chip_smoke.py's bf16 flash-attention limits against the kernel and
+against copies of it broken on purpose.
+
+For the kernel as it is, and for each edit of its tensor-core path in
+MUTATIONS, this builds the kernels (a mutation in a temporary copy of the
+tree) and runs every bf16 case of chip_smoke.py's phase 3: the serving
+shapes, the masked-row cases and the test cases. Per case it prints the
+worst share of the elementwise limit (chip_smoke.flash_limit), the rms
+share against chip_smoke.FLASH_RMS_TOL, and whether the earlier limit
+2e-2 x max(1, |plain|) would pass. The kernel as it is must pass every
+case and each mutation must fail one, else the exit code is 1.
+
+Run from the repository root on a CUDA machine:  python3 check_flash_limits.py
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SOURCE = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
+MMA_KERNEL = "flash_fwd_mma_kernel("
+# (text in the tensor-core kernel, replacement)
+MUTATIONS = {
+    "drop_tile": [("for (int j = 0; j < 2; ++j) {",
+                   "for (int j = 0; j < (it == n_tiles / 2 ? 0 : 2); ++j) {")],
+    "window_edge": [("valid = valid && rel < window;", "valid = valid && rel <= window;")],
+    "softmax_sum": [("l0 = l0 * al0 + ls0;", "l0 = l0 * al0 + ls0 * 1.02f;"),
+                    ("l1 = l1 * al1 + ls1;", "l1 = l1 * al1 + ls1 * 1.02f;")],
+}
+
+
+def bf16_cases(cs, gen, dev):
+    import torch
+    cases = [(f"serving {kind}",) + cs.slice_attention_inputs(kind, gen, dev)
+             for kind in ("decode", "prefill")]
+    for hd, Skv in ((256, 256), (128, 200)):
+        q, k, v = cs.attn_inputs(gen, 2, 300, Skv, 16, 1, hd, torch.bfloat16, dev)
+        q_pos = torch.arange(300, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+        cases.append((f"masked rows hd {hd} Skv {Skv}",
+                      (q, k, v, q_pos, cs.ring_positions([300, 150], Skv, dev)),
+                      {"window": 128}))
+    for Sq, Skv, nq, nkv, hd, win, cap in cs.ATTN_CASES:
+        q, k, v = cs.attn_inputs(gen, 2, Sq, Skv, nq, nkv, hd, torch.bfloat16, dev)
+        q_pos = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+        kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+        cases.append((f"test case {(Sq, Skv, nq, nkv, hd, win, cap)}",
+                      (q, k, v, q_pos, kv_pos), {"window": win, "softcap": cap}))
+    return cases
+
+
+def evaluate(label):
+    """Run in the tree to check (the current directory); prints one line per
+    case and, last, {"label", "failed", "cases"}."""
+    sys.path.insert(0, str(Path.cwd()))
+    import torch
+    import chip_smoke as cs
+    cs.build.load()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    failed = 0
+    cases = bf16_cases(cs, gen, dev)
+    for name, args, kw in cases:
+        got = cs.ops.flash_attention(*args, **kw).float()
+        want = cs.flash_attention_ref(*args, **kw).float()
+        diff = (got - want).abs()
+        old = float((diff / want.abs().clamp(min=1.0)).max())
+        worst = float((diff / cs.flash_limit(args, kw, want)).max())
+        rms = float(diff.square().mean().sqrt() / want.square().mean().sqrt())
+        fails = worst > 1.0 or rms > cs.FLASH_RMS_TOL[torch.bfloat16]
+        failed += fails
+        print(f"{label} | {name}: max abs {float(diff.max()):.3e}, elementwise {worst:.3f} "
+              f"x the limit, rms {rms:.3e}, earlier limit "
+              f"{'fails' if old > 2e-2 else 'passes'} ({old:.3e}) | "
+              f"{'FAILS' if fails else 'passes'}")
+    print(json.dumps({"label": label, "failed": failed, "cases": len(cases)}))
+
+
+def run(label, tree):
+    res = subprocess.run([sys.executable, "check_flash_limits.py", "--evaluate", label],
+                         cwd=tree, capture_output=True, text=True, timeout=600)
+    print(res.stdout, end="")
+    if res.returncode:
+        print(res.stderr, end="")
+        raise RuntimeError(f"{label}: exit {res.returncode}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def mutate(tree, edits):
+    path = tree / SOURCE
+    head, kernel = path.read_text().split(MMA_KERNEL, 1)
+    for old, new in edits:
+        if kernel.count(old) != 1:
+            raise RuntimeError(f"{old!r} is not once in the tensor-core kernel")
+        kernel = kernel.replace(old, new)
+    path.write_text(head + MMA_KERNEL + kernel)
+
+
+def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--evaluate":
+        evaluate(sys.argv[2])
+        return 0
+    import chip_smoke as cs
+    cs.check_device()
+    ok = run("none", ROOT)["failed"] == 0
+    for label, edits in MUTATIONS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            tree = Path(tmp)
+            shutil.copytree(ROOT / "src", tree / "src",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            for script in ("chip_smoke.py", "check_flash_limits.py"):
+                shutil.copy(ROOT / script, tree / script)
+            mutate(tree, edits)
+            ok &= run(label, tree)["failed"] > 0
+    print(f"bf16 flash limits: {'hold' if ok else 'DO NOT hold'}")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

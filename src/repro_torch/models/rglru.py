@@ -1,0 +1,79 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427), the
+counterpart of the JAX package's `models/rglru.py`.
+
+Block:  x -> [gate branch: GeLU(W_g x)]
+           -> [rec branch: W_x x -> causal conv1d -> RG-LRU]
+        y = W_out (gate * rec)
+
+Prefill runs the scan through `kernels.ops.rglru_scan`; decode is the
+one-step update.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import causal_conv1d, dense_init, init_conv1d
+
+_C = 8.0
+
+
+def init_rglru(gen, cfg, dtype, device):
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    return {
+        "w_gate": dense_init(gen, d, w, dtype, device),
+        "w_x": dense_init(gen, d, w, dtype, device),
+        "conv": init_conv1d(gen, w, cfg.conv_kernel, dtype, device),
+        "w_a": dense_init(gen, w, w, dtype, device),
+        "w_i": dense_init(gen, w, w, dtype, device),
+        "lam": torch.linspace(0.5, 4.0, w, device=device).to(dtype),
+        "w_out": dense_init(gen, w, d, dtype, device),
+    }
+
+
+def _gates(p, u):
+    """u: [..., w] (post-conv). Returns (log_a, beta*i*u) in fp32."""
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["w_a"].float())
+    i = torch.sigmoid(uf @ p["w_i"].float())
+    log_a = -_C * F.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    return log_a, beta * i * uf
+
+
+def rglru_block(p, x, cfg, state=None):
+    """x: [B, S, d]. state: None or {"h": [B,W] fp32, "conv": [B,K-1,W]}.
+
+    Returns (y [B,S,d], new_state)."""
+    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
+    u, new_conv = causal_conv1d(p["conv"], x @ p["w_x"],
+                                None if state is None else state["conv"])
+    log_a, b = _gates(p, u)
+    if state is not None and x.shape[1] == 1:
+        # decode: single-step update
+        h = torch.exp(log_a[:, 0]) * state["h"].float() + b[:, 0]
+        h_seq, new_h = h[:, None], h
+    else:
+        h_seq = ops.rglru_scan(log_a.contiguous(), b.contiguous())
+        if state is not None:
+            # the incoming state folds into the whole scan outside the
+            # kernel: h_t += (prod a) h0
+            cum = torch.cumsum(log_a, dim=1)
+            h_seq = h_seq + torch.exp(cum) * state["h"].float()[:, None]
+        new_h = h_seq[:, -1]
+
+    y = (gate * h_seq.to(x.dtype)) @ p["w_out"]
+    new_state = None
+    if state is not None:
+        new_state = {"h": new_h.to(state["h"].dtype), "conv": new_conv}
+    return y, new_state
+
+
+def init_rglru_state(cfg, batch: int, dtype, device):
+    w = cfg.lru_width or cfg.d_model
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_kernel - 1, w), dtype=dtype,
+                                device=device)}
