@@ -2,14 +2,15 @@
 """Hold chip_smoke.py's bf16 flash-attention limits against the kernel and
 against copies of it broken on purpose.
 
-For the kernel as it is, and for each edit of its tensor-core path in
-MUTATIONS, this builds the kernels (a mutation in a temporary copy of the
-tree) and runs every bf16 case of chip_smoke.py's phase 3: the serving
-shapes, the masked-row cases and the test cases. Per case it prints the
-worst share of the elementwise limit (chip_smoke.flash_limit), the rms
-share against chip_smoke.FLASH_RMS_TOL, and whether the earlier limit
-2e-2 x max(1, |plain|) would pass. The kernel as it is must pass every
-case and each mutation must fail one, else the exit code is 1.
+For the kernel as it is, and for each edit in MUTATIONS, this builds the
+kernels (a mutation in a temporary copy of the tree) and runs every bf16
+case of chip_smoke.py's phase 3: its named cases (the test cases, masked
+rows, decode splits and empty lanes, prefills with mixed blocks) and the
+serving shapes. Per case it prints the worst share of the elementwise
+limit (chip_smoke.flash_limit), the rms share against
+chip_smoke.FLASH_RMS_TOL, and whether the earlier limit 2e-2 x max(1,
+|plain|) would pass. The kernel as it is must pass every case and each
+mutation must fail one, else the exit code is 1.
 
 Run from the repository root on a CUDA machine:  python3 check_flash_limits.py
 """
@@ -24,14 +25,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = Path("src/repro_torch/kernels/csrc/flash_attention.cu")
-MMA_KERNEL = "flash_fwd_mma_kernel("
-# (text in the tensor-core kernel, replacement)
+# (text that appears once in the source, replacement)
 MUTATIONS = {
-    "drop_tile": [("for (int j = 0; j < 2; ++j) {",
-                   "for (int j = 0; j < (it == n_tiles / 2 ? 0 : 2); ++j) {")],
-    "window_edge": [("valid = valid && rel < window;", "valid = valid && rel <= window;")],
-    "softmax_sum": [("l0 = l0 * al0 + ls0;", "l0 = l0 * al0 + ls0 * 1.02f;"),
-                    ("l1 = l1 * al1 + ls1;", "l1 = l1 * al1 + ls1 * 1.02f;")],
+    # the wgmma prefill path skips P.V for one kv tile
+    "drop_tile": [("for (int kstep = 0; kstep < kPfKeys / 16; ++kstep) {",
+                   "for (int kstep = 0; kstep < (i == n_live / 2 ? 0 : kPfKeys / 16); ++kstep) {")],
+    # every path lets the key at distance `window` in
+    "window_edge": [("if (window > 0) valid = valid && rel < window;",
+                     "if (window > 0) valid = valid && rel <= window;")],
+    # the wgmma prefill path's softmax sum is 2% high
+    "softmax_sum": [("row_sum0 = row_sum0 * alpha0 + tile_sum0;",
+                     "row_sum0 = row_sum0 * alpha0 + tile_sum0 * 1.02f;"),
+                    ("row_sum1 = row_sum1 * alpha1 + tile_sum1;",
+                     "row_sum1 = row_sum1 * alpha1 + tile_sum1 * 1.02f;")],
+    # the decode combine leaves out one split's partial
+    "drop_split": [("for (int sp = 0; sp < n_splits; ++sp) {",
+                    "for (int sp = 0; sp < n_splits; ++sp) {\n    if (sp == n_splits / 2) continue;")],
+    # the prefill's tile test skips tiles that hold a valid pair (those
+    # reaching past the block's last query position)
+    "skip_live_tile": [("live = live && (long long)lo <= qmax;",
+                        "live = live && (long long)hi <= qmax;")],
 }
 
 
@@ -39,19 +52,7 @@ def bf16_cases(cs, gen, dev):
     import torch
     cases = [(f"serving {kind}",) + cs.slice_attention_inputs(kind, gen, dev)
              for kind in ("decode", "prefill")]
-    for hd, Skv in ((256, 256), (128, 200)):
-        q, k, v = cs.attn_inputs(gen, 2, 300, Skv, 16, 1, hd, torch.bfloat16, dev)
-        q_pos = torch.arange(300, dtype=torch.int32, device=dev)[None].repeat(2, 1)
-        cases.append((f"masked rows hd {hd} Skv {Skv}",
-                      (q, k, v, q_pos, cs.ring_positions([300, 150], Skv, dev)),
-                      {"window": 128}))
-    for Sq, Skv, nq, nkv, hd, win, cap in cs.ATTN_CASES:
-        q, k, v = cs.attn_inputs(gen, 2, Sq, Skv, nq, nkv, hd, torch.bfloat16, dev)
-        q_pos = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=dev)[None].repeat(2, 1)
-        kv_pos = torch.arange(Skv, dtype=torch.int32, device=dev)[None].repeat(2, 1)
-        cases.append((f"test case {(Sq, Skv, nq, nkv, hd, win, cap)}",
-                      (q, k, v, q_pos, kv_pos), {"window": win, "softcap": cap}))
-    return cases
+    return cases + cs.attention_cases(gen, dev, torch.bfloat16)
 
 
 def evaluate(label):
@@ -93,12 +94,12 @@ def run(label, tree):
 
 def mutate(tree, edits):
     path = tree / SOURCE
-    head, kernel = path.read_text().split(MMA_KERNEL, 1)
+    text = path.read_text()
     for old, new in edits:
-        if kernel.count(old) != 1:
-            raise RuntimeError(f"{old!r} is not once in the tensor-core kernel")
-        kernel = kernel.replace(old, new)
-    path.write_text(head + MMA_KERNEL + kernel)
+        if text.count(old) != 1:
+            raise RuntimeError(f"{old!r} is not once in {SOURCE}")
+        text = text.replace(old, new)
+    path.write_text(text)
 
 
 def main():

@@ -4,7 +4,11 @@
 Phases, each fatal on failure:
   1. check the device (and turn TF32 off);
   2. build the CUDA kernels from the sources under src/repro_torch/kernels/csrc;
-  3. hold each kernel against its plain PyTorch version on the card;
+  3. hold each kernel against its plain PyTorch version on the card: flash
+     attention in fp32 and bf16 on the test cases, ring-buffer caches with
+     fully-masked rows, decode splits with an empty lane, and prefill
+     blocks that mix skipped tiles and rows without a valid slot; the
+     scan with and without an incoming state;
   4. serve recurrentgemma-9b at full width in bf16 through ServeEngine and
      check, by the launch counters, that the serving path ran the kernels;
   5. check that continuous batching equals isolated generation on the card
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -105,9 +110,36 @@ def build_kernels():
     build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.relative_to(ROOT)}")
     log = lib.with_suffix(".log").read_text().splitlines()
+    kernel = "?"
     for line in log:
-        if "registers" in line or ("spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line):
-            print("  ptxas:" + line.split(":", 1)[-1])
+        if "Compiling entry function" in line:
+            kernel = _kernel_name(line.split("'")[1])
+        elif ("registers" in line or "warning" in line.lower()
+              or ("spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line)):
+            name = _kernel_name(line.split("'")[1]) if "'" in line else kernel
+            print(f"  ptxas {name}:" + line.split(":", 1)[-1].split(" in the function")[0])
+
+
+KERNELS = ("flash_fwd_kernel", "flash_decode_kernel", "flash_combine_kernel",
+           "flash_prefill_kernel", "mean_v_kernel", "chunk_summary", "chunk_carry", "chunk_scan")
+
+
+def _kernel_name(mangled):
+    """`flash_decode_kernel<bf16, 256>` from a mangled kernel name."""
+    base = next((k for k in KERNELS if k in mangled), None)
+    if base is None:
+        return mangled
+    tail, args = mangled.split(base, 1)[1], []
+    if tail.startswith("I"):
+        t = tail[1:]
+        if t.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+        elif t.startswith("f"):
+            args.append("float")
+        m = re.match(r"(?:13__nv_bfloat16|f)?Li(\d+)E", t)
+        if m:
+            args.append(m.group(1))
+    return base + (f"<{', '.join(args)}>" if args else "")
 
 
 # ---------------------------------------------------------------------------
@@ -195,12 +227,58 @@ def _tol_text(dtype):
     return f"{elementwise}, rms within {FLASH_RMS_TOL[dtype]}"
 
 
-def scan_error(shape, gen, device):
+def attention_cases(gen, device, dtype):
+    """The named flash-attention cases of phase 3 in `dtype`: (name, args,
+    kwargs). The test cases of tests/test_kernels.py; hd 128 and 256 with a
+    ring-buffer cache, ragged Skv and fully-masked rows; decode where Skv is
+    not a multiple of the split size, at group sizes 16 and 1, with one lane
+    whose cache was never written (kv_pos all -1); and prefills whose query
+    blocks mix rows without a valid slot, rows with one, and kv tiles the
+    mask empties, at both ends of the window."""
+    cases = []
+    for Sq, Skv, nq, nkv, hd, win, cap in ATTN_CASES:
+        q, k, v = attn_inputs(gen, 2, Sq, Skv, nq, nkv, hd, dtype, device)
+        q_pos = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=device)[None].repeat(2, 1)
+        kv_pos = torch.arange(Skv, dtype=torch.int32, device=device)[None].repeat(2, 1)
+        cases.append((f"test case {(Sq, Skv, nq, nkv, hd, win, cap)}",
+                      (q, k, v, q_pos, kv_pos), {"window": win, "softcap": cap}))
+    for hd, Skv in ((256, 256), (128, 200)):
+        q, k, v = attn_inputs(gen, 2, 300, Skv, 16, 1, hd, dtype, device)
+        q_pos = torch.arange(300, dtype=torch.int32, device=device)[None].repeat(2, 1)
+        cases.append((f"masked rows hd {hd} Skv {Skv}",
+                      (q, k, v, q_pos, ring_positions([300, 150], Skv, device)),
+                      {"window": 128}))
+    lengths = [2600, 900, 33, 0]   # the last lane's cache was never written
+    for nq, nkv, hd, Skv in ((16, 1, 256, 2000), (4, 4, 128, 130)):
+        q, k, v = attn_inputs(gen, 4, 1, Skv, nq, nkv, hd, dtype, device)
+        q_pos = torch.tensor(lengths, dtype=torch.int32, device=device)[:, None]
+        cases.append((f"decode group {nq // nkv} hd {hd} Skv {Skv} with an empty lane",
+                      (q, k, v, q_pos, ring_positions(lengths, Skv, device)), {"window": Skv}))
+    for nq, nkv, hd, Skv, window in ((4, 2, 128, 256, 128), (16, 1, 256, 512, 512)):
+        q, k, v = attn_inputs(gen, 2, 700, Skv, nq, nkv, hd, dtype, device)
+        q_pos = torch.arange(700, dtype=torch.int32, device=device)[None].repeat(2, 1)
+        cases.append((f"prefill 700 rows hd {hd} Skv {Skv} window {window}, mixed blocks",
+                      (q, k, v, q_pos, ring_positions([700, 400], Skv, device)),
+                      {"window": window}))
+    return cases
+
+
+def scan_inputs(shape, gen, device, with_h0):
     la = -torch.randn(shape, generator=gen, device=device).abs()
     b = torch.randn(shape, generator=gen, device=device)
-    got = ops.rglru_scan(la, b)
+    h0 = (torch.randn((shape[0], shape[2]), generator=gen, device=device)
+          if with_h0 else None)
+    return la, b, h0
+
+
+def scan_error(shape, gen, device, with_h0):
+    la, b, h0 = scan_inputs(shape, gen, device, with_h0)
+    got = ops.rglru_scan(la, b, h0)
     sync(device)
-    return float((got - rglru_scan_ref(la, b)).abs().max())
+    return float((got - rglru_scan_ref(la, b, h0)).abs().max())
+
+
+SCAN_SHAPES = ((1, 2500, 4096), (3, 17, 5), (1, 100, 70), (2, 257, 4100), (2, 1, 64))
 
 
 def check_kernels(device):
@@ -209,26 +287,14 @@ def check_kernels(device):
     gen = torch.Generator(device=device).manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         worst = rms = 0.0
-        for Sq, Skv, nq, nkv, hd, win, cap in ATTN_CASES:
-            q, k, v = attn_inputs(gen, 2, Sq, Skv, nq, nkv, hd, dtype, device)
-            q_pos = torch.arange(Skv - Sq, Skv, dtype=torch.int32, device=device)[None].repeat(2, 1)
-            kv_pos = torch.arange(Skv, dtype=torch.int32, device=device)[None].repeat(2, 1)
-            _, w, r = flash_error((q, k, v, q_pos, kv_pos), {"window": win, "softcap": cap},
-                                  device, f"{dtype} case {(Sq, Skv, nq, nkv, hd, win, cap)}")
+        cases = attention_cases(gen, device, dtype)
+        for name, args, kw in cases:
+            err, w, r = flash_error(args, kw, device, f"{dtype} {name}")
             worst, rms = max(worst, w), max(rms, r)
-        print(f"flash attention: {len(ATTN_CASES)} test cases in {dtype} within "
-              f"{_tol_text(dtype)}: worst {worst:.3f} x the limit, rms {rms:.3e}")
-    # hd 128 and 256, a ring-buffer cache with empty slots, ragged Skv, and
-    # fully-masked query rows; bf16 here takes the tensor-core path
-    for dtype in (torch.float32, torch.bfloat16):
-        for hd, Skv in ((256, 256), (128, 200)):
-            q, k, v = attn_inputs(gen, 2, 300, Skv, 16, 1, hd, dtype, device)
-            q_pos = torch.arange(300, dtype=torch.int32, device=device)[None].repeat(2, 1)
-            kv_pos = ring_positions([300, 150], Skv, device)
-            err, worst, rms = flash_error((q, k, v, q_pos, kv_pos), {"window": 128}, device,
-                                          f"{dtype} hd {hd} masked rows")
-            print(f"flash attention: {dtype} hd {hd} Skv {Skv} with fully-masked rows, "
-                  f"max error {err:.3e}, {worst:.3f} x the limit, rms {rms:.3e}")
+            print(f"  flash attention {dtype} {name}: max error {err:.3e}, "
+                  f"{w:.3f} x the limit, rms {r:.3e}")
+        print(f"flash attention: {len(cases)} cases in {dtype} within {_tol_text(dtype)}: "
+              f"worst {worst:.3f} x the limit, rms {rms:.3e}")
 
     errors = {}
     for kind in ("decode", "prefill"):
@@ -238,12 +304,14 @@ def check_kernels(device):
         print(f"flash attention {kind} {tuple(args[0].shape)} x {tuple(args[1].shape)} bf16: "
               f"max error {err:.3e}, {worst:.3f} x the limit ({_tol_text(torch.bfloat16)}), "
               f"rms {rms:.3e}")
-    for shape in ((1, 2500, 4096), (3, 17, 5), (1, 100, 70), (2, 257, 4100)):
-        err = scan_error(shape, gen, device)
-        require(err < 1e-5, f"rglru scan {shape}: max error {err:.3e} >= 1e-5")
-        if shape == (1, 2500, 4096):
-            errors["rglru_scan.prefill"] = err
-        print(f"rglru scan {shape}: max error {err:.3e}")
+    for shape in SCAN_SHAPES:
+        for with_h0 in (False, True):
+            err = scan_error(shape, gen, device, with_h0)
+            require(err < 1e-5, f"rglru scan {shape} h0={with_h0}: max error {err:.3e} >= 1e-5")
+            if shape == (1, 2500, 4096) and with_h0:
+                errors["rglru_scan.prefill"] = err
+            print(f"rglru scan {shape} {'with' if with_h0 else 'without'} h0: "
+                  f"max error {err:.3e}")
     return errors
 
 
@@ -477,14 +545,18 @@ def _to(tree, device):
 # Phase 6: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, device, runs=20, warmup=3):
-    """Median of `runs` CUDA-event timings; L2 is flushed before each run, as
-    a layer finds it after the previous layer's weights went through."""
+    """Median of `runs` CUDA-event timings of the device's work; L2 is
+    flushed before each run, as a layer finds it after the previous layer's
+    weights went through. A device-side wait of about half a millisecond
+    before the start event lets the host enqueue all of `fn` first, so the
+    time does not include the host's enqueue."""
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=device)
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -543,19 +615,19 @@ def time_kernels(device, errors, launches):
                         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                         "library_ms": lib,
                         "shape": f"q {list(q.shape)} kv {list(k.shape)} bf16"})
+    # the serving path passes the incoming state h0
     shape = (1, 2500, 4096)
-    la = -torch.randn(shape, generator=gen, device=device).abs()
-    b = torch.randn(shape, generator=gen, device=device)
-    t_bytes = 3 * la.numel() * 4 / HBM_BYTES_PER_S
+    la, b, h0 = scan_inputs(shape, gen, device, with_h0=True)
+    t_bytes = (3 * la.numel() + h0.numel()) * 4 / HBM_BYTES_PER_S
     t_ops = 3 * la.numel() / PEAK_OPS_PER_S[torch.float32]
     entries.append({"name": "rglru_scan.prefill", "route": "cuda", "source": SCAN_SOURCE,
                     "replaces": SCAN_REPLACES, "launches": launches["rglru_scan.prefill"],
                     "max_abs_err": errors["rglru_scan.prefill"],
-                    "ms": time_ms(lambda: ops.rglru_scan(la, b), device),
-                    "plain_ms": time_ms(lambda: rglru_scan_ref(la, b), device),
+                    "ms": time_ms(lambda: ops.rglru_scan(la, b, h0), device),
+                    "plain_ms": time_ms(lambda: rglru_scan_ref(la, b, h0), device),
                     "bound_ms": 1e3 * max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": None, "shape": f"{list(shape)} fp32"})
+                    "library_ms": None, "shape": f"{list(shape)} fp32 with h0"})
     for e in entries:
         print(f"{e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "

@@ -7,7 +7,8 @@ its serving mix, then traces one 2048-token prefill and a window of decode
 ticks with torch.profiler, through the model API's prefill and decode
 steps. For each it prints the wall time, the time the host takes to
 enqueue the step, the device-busy time (the union of kernel intervals on
-the device), the idle share, and the kernels ranked by device time.
+the device), the idle share, the kernels ranked by device time, and each
+of the port's own kernels with its share of the device-busy time.
 
 Run from the repository root on a CUDA machine:  python3 profile_serve.py
 """
@@ -28,6 +29,8 @@ from repro_torch.kernels import build
 from repro_torch.models import api
 
 TICKS = 8
+# Name fragments of the port's own kernels (src/repro_torch/kernels/csrc).
+PORT_KERNELS = ("flash_", "mean_v_kernel", "chunk_summary", "chunk_carry", "chunk_scan")
 
 
 def device_events(prof):
@@ -63,6 +66,16 @@ def report(label, prof, wall_ms, enqueue_ms, steps):
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     for name, (n, dur) in ranked[:14]:
         print(f"  {dur / 1e3 / steps:8.3f} ms/step {n / steps:7.1f} calls/step  {name[:110]}")
+    print("  the port's kernels, share of device-busy time:")
+    for name, (n, dur) in ranked:
+        if any(k in name for k in PORT_KERNELS):
+            short = name.replace("void ", "").replace("(anonymous namespace)::", "")
+            print(f"  {dur / 1e3 / steps:8.3f} ms/step {n / steps:7.1f} calls/step "
+                  f"{dur / 1e3 / busy:6.1%}  {short.split('(')[0][:80]}")
+    cumsum = sum(dur for name, (n, dur) in ranked
+                 if ("cumsum" in name.lower() or "scan" in name.lower())
+                 and not any(k in name for k in PORT_KERNELS))
+    print(f"  cumsum and other library scans: {cumsum / 1e3 / steps:.3f} ms/step")
 
 
 def main():

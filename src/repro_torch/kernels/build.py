@@ -66,7 +66,7 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name} (exit {proc.returncode}):\n{out}")
     tmp = build_dir / f"{lib.stem}.{tag}.tmp.so"
-    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs), "-ldl"],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     for o in objs:
@@ -83,9 +83,9 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C signatures."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_flash_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                              i, i, i, i, ctypes.c_float, p]
+    lib.repro_flash_attention_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                              i, i, i, i, i, ctypes.c_float, i, p]
     lib.repro_flash_attention_fwd.restype = i
-    lib.repro_rglru_scan.argtypes = [p, p, p, i, i, i, p]
+    lib.repro_rglru_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.repro_rglru_scan.restype = i
     return lib

@@ -7,46 +7,56 @@
 // position-based mask (kv_pos < 0 empty; causal q_pos - kv_pos >= 0; window
 // rel < window). Output in q's dtype.
 //
-// What bounds it on the H100: at prefill (Sq in the thousands, Skv 2048,
-// hd 256) the work is 4*Sq*Skv*hd*nq operations, so the kernel is bound by
-// arithmetic; at decode (Sq = 1) it is bound by the bytes of the K/V cache.
+// Masked scores are the finite value -1e30 and the running max starts
+// there, exactly as in the Pallas kernel, so a query row with no valid slot
+// averages V uniformly over the Skv real slots (slots past Skv get -inf and
+// weigh nothing). Which of three paths runs is decided by dtype and shape:
 //
-// Design: one block of 4 warps per (batch, q head, q tile); the TPU's
-// sequential kv grid axis becomes a loop inside the block. Tiles of 32 keys
-// are copied to shared memory in their input type with cp.async, two stages
-// deep, so the next tile is in flight while the current one is computed;
-// rows past Skv are zero-filled by the copy itself. Two paths share that
-// pipeline:
-//
-// * bf16 with 64 query rows or more (prefill): tensor cores. Each warp owns
-//   16 query rows; mma.sync m16n8k16 (bf16 in, fp32 accumulate) computes
-//   the 16 x 32 score tile from ldmatrix fragments of the query and key
-//   tiles, the online softmax runs on the accumulator fragments (row max
-//   and sum over the 4 threads of a row group), and the probabilities,
-//   rounded to bf16, are used in registers as the A operand of P.V, with V
-//   fragments from transposing ldmatrix. Tiles are bf16 with rows padded by
-//   16 bytes so every ldmatrix phase hits 32 distinct banks.
-// * fp32, and bf16 with fewer rows (decode): CUDA cores. Each lane owns
-//   one key of the tile and computes its dot product with R query rows
-//   (query rows fp32 in shared memory, read as float4 broadcasts; key rows
-//   padded by 16 bytes so the 16-byte loads of a quarter warp hit 32
-//   distinct banks); the softmax reduces across the warp with shuffles; in
-//   P.V each lane owns hd/32 output dimensions of the warp's R rows, kept
-//   in registers. R = 8 rows per warp for long query blocks, R = 1 for short
-//   ones, so a one-row decode query does not pay for 32. A decode call has
-//   only B x nq blocks, each with one busy warp: a split of the kv range
-//   across blocks is later work, as are wgmma and TMA.
+// * Decode, Sq < 64 (fp32 and bf16): bound by the bytes of the K/V cache.
+//   With one block per (batch, q head), every q head of a kv group re-reads
+//   the same K/V, and B x nq blocks (64 at the serving shape) leave most of
+//   the 132 SMs idle. Here a block takes one (batch, kv head, kv split): its
+//   rows are the g = nq/nkv query heads of the kv group times the Sq
+//   positions (16 rows per block in bf16, one mma.sync m16n8k16 M tile; 8
+//   in fp32, on CUDA cores), so each K/V byte is read once per batch, and
+//   the kv range is cut into splits (a plan made by the wrapper) so that the
+//   grid covers the card: 32 splits of 64 keys at the serving shape. Each
+//   warp walks its own keys of the split with its own online softmax; the
+//   block merges its warps and writes the split's partial (max, sum,
+//   accumulator) in fp32 to scratch, and a second kernel merges the splits
+//   by the log-sum-exp rule. Two launches per call.
+// * Prefill in bf16, Sq >= 64, hd 64/128/256: bound by tensor-core
+//   operations. Warp-specialised: two consumer warpgroups of 64 query rows
+//   each run wgmma (bf16 in, fp32 accumulate) for S = Q.K^T from shared
+//   memory, the online softmax on the accumulator fragments, and P.V with P
+//   in registers as operand A; a producer warp keeps a ring of K/V tiles of
+//   64 keys in flight with TMA (128-byte swizzle) and mbarriers, and reuses
+//   a K stage as soon as its scores are in, a V stage once P.V is done.
+//   Registers move from the producer to the consumers (setmaxnreg): the
+//   O accumulator alone is 128 per thread at hd 256. Only 41%
+//   of the serving prefill's 2500 x 2048 rectangle is valid, so each block
+//   first lists the kv tiles whose mask is not empty for its rows, from its
+//   own q_pos range and each tile's kv_pos range (a conservative test, as
+//   positions are arbitrary ring-buffer slots), and runs only those. A
+//   skipped tile adds exactly 0 to every row that has a valid key; a row
+//   that has none anywhere takes the mean of V over the Skv slots, which a
+//   small kernel computes first. Two launches per call. Blocks are issued
+//   longest first (the last query rows see the most tiles).
+// * Everything else (fp32 with Sq >= 64; bf16 at hd 32): CUDA cores, one
+//   block of 4 warps per (batch, q head, 32 query rows), kv tiles of 32
+//   keys copied with cp.async two stages deep; each lane owns one key in
+//   the score phase and hd/32 output dims in P.V. One launch per call. fp32
+//   stays off the tensor cores: its 1e-5 contract cannot afford a bf16 P.
 //
 // Shared memory exceeds 48 KB at hd >= 128, so every launch raises the
 // dynamic shared-memory limit first, and the launch error is returned.
-//
-// Masked scores are the finite value -1e30 and the running max starts
-// there, exactly as in the Pallas kernel: a query row with no valid slot
-// then averages V uniformly over the Skv real slots (slots past Skv get
-// -inf and weigh nothing).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -54,8 +64,9 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBlockK = 32;  // one key per lane in the score phase
+constexpr int kBlockK = 32;  // one key per lane in the CUDA-core score phase
 constexpr float kNeg = -1e30f;
+constexpr int kDecodeMaxSq = 64;  // shorter query blocks take the decode path
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -89,11 +100,15 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&f)[8]
   }
 }
 
-// 16-byte asynchronous copy to shared memory; src_bytes = 0 writes zeros.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; valid = false writes zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n)
                : "memory");
 }
 
@@ -104,6 +119,10 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -118,21 +137,80 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Max and sum over the 4 threads of an mma row group (lanes 4g .. 4g+3).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The score of one (query, key) pair after softcap and mask: s is already
+// scaled; kp is the key's kv_pos; a key outside the range the caller walks
+// (past Skv, or in another split) gets -inf.
+__device__ __forceinline__ float masked_score(float s, int qp, int kp, bool in_range,
+                                              int causal, int window, float softcap) {
+  if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+  bool valid = kp >= 0;
+  if (causal) {
+    const int rel = qp - kp;
+    valid = valid && rel >= 0;
+    if (window > 0) valid = valid && rel < window;
+  }
+  s = valid ? s : kNeg;
+  return in_range ? s : -INFINITY;
+}
+
+__device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const void* p, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core path: fp32 with Sq >= 64, and bf16 at hd 32.
+// ---------------------------------------------------------------------------
+constexpr int kRows = 8;  // query rows per warp
+
 // Shared-memory layout: the query tile in fp32, two stages of K and V tiles
-// in the input type (K rows padded by 16 bytes), and one [R][kBlockK]
+// in the input type (K rows padded by 16 bytes), and one [kRows][kBlockK]
 // probability tile per warp. Every part starts 16-byte aligned.
-template <typename T, int HD, int R>
+template <typename T, int HD>
 struct Tile {
   static constexpr int kEPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
   static constexpr int kCPR = HD / kEPC;            // chunks per row
   static constexpr int kQStride = HD + 4;           // floats
   static constexpr int kKStride = HD + kEPC;        // elements of T
   static constexpr int kVStride = HD;               // elements of T
-  static constexpr int kBlockQ = kWarps * R;
+  static constexpr int kBlockQ = kWarps * kRows;
   static constexpr size_t kQBytes = sizeof(float) * kBlockQ * kQStride;
   static constexpr size_t kKBytes = sizeof(T) * kBlockK * kKStride;  // one stage
   static constexpr size_t kVBytes = sizeof(T) * kBlockK * kVStride;  // one stage
-  static constexpr size_t kPBytes = sizeof(float) * kWarps * R * kBlockK;
+  static constexpr size_t kPBytes = sizeof(float) * kWarps * kRows * kBlockK;
   static constexpr size_t kBytes = kQBytes + 2 * (kKBytes + kVBytes) + kPBytes;
 };
 
@@ -158,14 +236,15 @@ __device__ __forceinline__ void issue_tile(T* kd, T* vd, const T* kb, const T* v
   cp_async_commit();
 }
 
-template <typename T, int HD, int R>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ kv_pos, T* __restrict__ out, int Sq,
                  int Skv, int nq, int nkv, int causal, int window,
                  float softcap, float scale) {
-  using L = Tile<T, HD, R>;
+  using L = Tile<T, HD>;
+  constexpr int R = kRows;
   constexpr int QS = L::kQStride;
   constexpr int KS = L::kKStride;
   constexpr int VS = L::kVStride;
@@ -235,7 +314,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int st = it & 1;
     if (it + 1 < n_tiles)
       issue_tile<T, HD, KS, VS>(Ks + (st ^ 1) * kBlockK * KS, Vs + (st ^ 1) * kBlockK * VS,
-                           kb, vb, (it + 1) * kBlockK, Skv, kv_step, tid);
+                                kb, vb, (it + 1) * kBlockK, Skv, kv_step, tid);
     else
       cp_async_commit();  // an empty group keeps "all but the newest" meaning tile `it`
     cp_async_wait_one();
@@ -269,16 +348,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // Online softmax over this tile.
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float s = sc[r];
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        bool valid = kp >= 0;
-        if (causal) {
-          const int rel = qp[r] - kp;
-          valid = valid && rel >= 0;
-          if (window > 0) valid = valid && rel < window;
-        }
-        s = valid ? s : kNeg;
-        if (!in_range) s = -INFINITY;
+        const float s = masked_score(sc[r], qp[r], kp, in_range, causal, window, softcap);
         const float m_new = fmaxf(m[r], warp_max(s));
         const float p = expf(s - m_new);
         const float alpha = expf(m[r] - m_new);
@@ -322,187 +392,181 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 inputs, query blocks of 64 rows and more.
+// Decode path: Sq < 64, split-KV, the kv group's query heads packed as rows.
 // ---------------------------------------------------------------------------
-constexpr int kMmaRows = 16;                   // query rows per warp (mma M)
-constexpr int kMmaBlockQ = kWarps * kMmaRows;  // 64
-
-// bf16 tiles with rows padded by 16 bytes, so the eight 16-byte rows an
-// ldmatrix phase reads fall in 32 distinct banks.
-template <int HD>
-struct MmaTile {
-  static constexpr int kStride = HD + 8;  // bf16 elements
-  static constexpr size_t kQBytes = 2 * (size_t)kMmaBlockQ * kStride;
-  static constexpr size_t kKVBytes = 2 * (size_t)kBlockK * kStride;  // K or V, one stage
-  static constexpr size_t kBytes = kQBytes + 4 * kKVBytes;
+// Row r of a (batch, kv head) is query position r / g, head kh * g + r % g.
+template <typename T, int HD>
+struct DecodeTile {
+  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kRowsPerBlock = kMma ? 16 : 8;   // one mma M tile in bf16
+  static constexpr int kWarpKeys = kMma ? 16 : 32;      // keys a warp takes at a time
+  static constexpr int kQStride = kMma ? HD + 8 : HD + 4;  // bf16 elements / floats
+  static constexpr int kKVStride = HD + 8;                 // bf16 elements (mma only)
+  static constexpr size_t kQBytes =
+      (kMma ? 2 : 4) * (size_t)kRowsPerBlock * kQStride;
+  // per warp: bf16 K and V subtiles, two stages; fp32 a probability tile
+  static constexpr size_t kWarpBytes =
+      kMma ? 2 * 2 * 2 * (size_t)kWarpKeys * kKVStride : 4 * (size_t)kRowsPerBlock * kWarpKeys;
+  // the warps' partials, merged at the end: acc [warp][row][HD], (m, l) [warp][row]
+  static constexpr size_t kMergeBytes = 4 * (size_t)kWarps * kRowsPerBlock * (HD + 2);
+  static constexpr size_t kWorkBytes =
+      kWarps * kWarpBytes > kMergeBytes ? kWarps * kWarpBytes : kMergeBytes;
+  static constexpr size_t kBytes = kQBytes + kWorkBytes;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const void* p, unsigned (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Same contract as flash_fwd_kernel. Each warp owns 16 query rows; with
-// g = lane / 4 and c = lane % 4 a thread holds rows g and g + 8 of the
-// warp's score tile (keys 8 n + 2 c and + 1 of n-tile n) and the same
-// rows of the output (dims 8 n + 2 c and + 1). The score fragments become
-// the A operand of P.V in registers.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ q_pos,
-                     const int* __restrict__ kv_pos,
-                     __nv_bfloat16* __restrict__ out, int Sq, int Skv, int nq,
-                     int nkv, int causal, int window, float softcap,
-                     float scale) {
-  using L = MmaTile<HD>;
-  constexpr int S = L::kStride;
-  constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  constexpr int NT = HD / 8;   // output n-tiles of 8 dims
-  constexpr int KSTEPS = HD / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes + 2 * L::kKVBytes);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int c4 = lane & 3;
-  const int q0 = blockIdx.x * kMmaBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (nq / nkv);
-  const long q_step = (long)nq * HD;
-  const long kv_step = (long)nkv * HD;
-  const __nv_bfloat16* qb = q + ((long)b * Sq * nq + h) * HD;
-  const __nv_bfloat16* kb = k + ((long)b * Skv * nkv + kh) * HD;
-  const __nv_bfloat16* vb = v + ((long)b * Skv * nkv + kh) * HD;
-  const int n_tiles = (Skv + kBlockK - 1) / kBlockK;
-
-  // The query tile joins the first kv tile's copy group; rows past Sq are zeros.
-  constexpr int kQChunks = kMmaBlockQ * CPR;
+// Copy a warp's kv subtile [t0, t0 + 16) (bf16) into one stage and commit;
+// keys at or past `end` are zero-filled.
+template <int HD, int WK, int KVS>
+__device__ __forceinline__ void issue_warp_tile(__nv_bfloat16* kd, __nv_bfloat16* vd,
+                                                const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                                int t0, int end, long kv_step, int lane) {
+  constexpr int kCPR = HD / 8;
 #pragma unroll
-  for (int j = 0; j < (kQChunks + kThreads - 1) / kThreads; ++j) {
-    const int i = j * kThreads + tid;
-    if (kQChunks % kThreads == 0 || i < kQChunks) {
-      const int r = i / CPR, e = (i % CPR) * 8, s = q0 + r;
-      const bool in = s < Sq;
-      cp_async16(Qs + r * S + e, qb + (in ? s * q_step : 0) + e, in);
+  for (int i = lane; i < WK * kCPR; i += 32) {
+    const int c = i / kCPR, e = (i % kCPR) * 8, t = t0 + c;
+    const bool in = t < end;
+    const long off = (in ? (long)t * kv_step : 0) + e;
+    cp_async16(kd + c * KVS + e, kb + off, in);
+    cp_async16(vd + c * KVS + e, vb + off, in);
+  }
+  cp_async_commit();
+}
+
+// Grid (splits, nkv * row tiles, B). Writes, for each row of the block and
+// this split, the partial (m, l) to part_ml[2 * p] and the unnormalised
+// accumulator to part_acc[p * HD], p = ((b * nkv + kh) * rows + row) *
+// splits + split.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ q_pos, const int* __restrict__ kv_pos,
+                    float* __restrict__ part_ml, float* __restrict__ part_acc, int Sq, int Skv,
+                    int nq, int nkv, int keys_per_split, int causal, int window, float softcap,
+                    float scale) {
+  using L = DecodeTile<T, HD>;
+  constexpr int RB = L::kRowsPerBlock;
+  constexpr int WK = L::kWarpKeys;
+  constexpr int QS = L::kQStride;
+  constexpr int EPC = 16 / (int)sizeof(T);
+  constexpr int CPR = HD / EPC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* work = smem + L::kQBytes;
+  float* merge_acc = reinterpret_cast<float*>(work);            // [warp][row][HD]
+  float* merge_ml = merge_acc + kWarps * RB * HD;                // [warp][row][2]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = nq / nkv, rows = g * Sq, row_tiles = (rows + RB - 1) / RB;
+  const int split = blockIdx.x, n_splits = gridDim.x;
+  const int kh = blockIdx.y / row_tiles, row0 = (blockIdx.y % row_tiles) * RB;
+  const int b = blockIdx.z;
+  const int k0 = split * keys_per_split, k1 = min(Skv, k0 + keys_per_split);
+  const long kv_step = (long)nkv * HD;
+  const T* kb = k + ((long)b * Skv * nkv + kh) * HD;
+  const T* vb = v + ((long)b * Skv * nkv + kh) * HD;
+  auto q_row = [&](int rr) {  // the query row of block row rr < rows
+    return q + (((long)b * Sq + rr / g) * nq + (long)kh * g + rr % g) * HD;
+  };
+  auto row_pos = [&](int rr) {
+    return rr < rows ? q_pos[(long)b * Sq + rr / g] : -(1 << 30);
+  };
+
+  // bf16: each warp's first kv subtile is in flight with the query rows.
+  const int first = k0 + warp * WK;
+  __nv_bfloat16* wbuf = reinterpret_cast<__nv_bfloat16*>(work) + warp * (2 * 2 * WK * L::kKVStride);
+  if constexpr (L::kMma) {
+    if (first < k1)
+      issue_warp_tile<HD, WK, L::kKVStride>(wbuf, wbuf + WK * L::kKVStride, kb, vb, first, k1,
+                                            kv_step, lane);
+  }
+  // Query rows of the block (rows past `rows` are zeros).
+  for (int i = tid; i < RB * CPR; i += kThreads) {
+    const int r = i / CPR, e = (i % CPR) * EPC, rr = row0 + r;
+    if constexpr (L::kMma) {
+      cp_async16(reinterpret_cast<T*>(smem) + r * QS + e, rr < rows ? q_row(rr) + e : q, rr < rows);
+    } else {
+      float f[EPC];
+      if (rr < rows) {
+        load_chunk(q_row(rr) + e, f);
+      } else {
+#pragma unroll
+        for (int u = 0; u < EPC; ++u) f[u] = 0.f;
+      }
+      float* dst = reinterpret_cast<float*>(smem) + r * QS + e;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(f[0] * scale, f[1] * scale, f[2] * scale, f[3] * scale);
     }
   }
-  issue_tile<__nv_bfloat16, HD, S, S>(Ks, Vs, kb, vb, 0, Skv, kv_step, tid);
+  if constexpr (L::kMma) {
+    cp_async_commit();
+    cp_async_wait_all();
+  }
+  __syncthreads();
 
-  const int row0 = q0 + warp * kMmaRows + g;  // rows row0 and row0 + 8
-  const bool active = q0 + warp * kMmaRows < Sq;
-  const int qp0 = row0 < Sq ? q_pos[(long)b * Sq + row0] : -(1 << 30);
-  const int qp1 = row0 + 8 < Sq ? q_pos[(long)b * Sq + row0 + 8] : -(1 << 30);
-  float o[NT][4];
+  if constexpr (L::kMma) {
+    // bf16: each warp runs mma.sync over subtiles of 16 keys of the split.
+    constexpr int KVS = L::kKVStride;
+    constexpr int NT = HD / 8;  // output n-tiles of 8 dims
+    const __nv_bfloat16* Qs = reinterpret_cast<const __nv_bfloat16*>(smem);
+    const int gq = lane >> 2, c4 = lane & 3;
+    const int qp0 = row_pos(row0 + gq), qp1 = row_pos(row0 + gq + 8);
+    float o[NT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this thread's share
-  const __nv_bfloat16* Qw = Qs + warp * kMmaRows * S;
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this thread's share
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_tiles)
-      issue_tile<__nv_bfloat16, HD, S, S>(Ks + (st ^ 1) * kBlockK * S, Vs + (st ^ 1) * kBlockK * S,
-                                          kb, vb, (it + 1) * kBlockK, Skv, kv_step, tid);
-    else
-      cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (active) {
-      const __nv_bfloat16* Kt = Ks + st * kBlockK * S;
-      const __nv_bfloat16* Vt = Vs + st * kBlockK * S;
-
-      // Scores: 16 rows x 32 keys, four n-tiles of 8 keys.
-      float sc[4][4];
+    int st = 0;  // the first subtile arrived with the query rows
+    for (int t0 = first; t0 < k1; t0 += kWarps * WK, st ^= 1) {
+      const int next = t0 + kWarps * WK;
+      __nv_bfloat16* nb = wbuf + (st ^ 1) * 2 * WK * KVS;
+      if (next < k1)
+        issue_warp_tile<HD, WK, KVS>(nb, nb + WK * KVS, kb, vb, next, k1, kv_step, lane);
+      else
+        cp_async_commit();
+      int kp[2][2];  // positions of keys t0 + 8n + 2 c4 + e, loaded while K/V land
 #pragma unroll
-      for (int n = 0; n < 4; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        unsigned a[4];
-        ldsm_x4(Qw + (lane & 15) * S + ks * 16 + (lane >> 4) * 8, a);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          unsigned bk[4];
-          ldsm_x4(Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + ks * 16 +
-                      ((lane >> 3) & 1) * 8,
-                  bk);
-          mma_bf16(sc[2 * np], a, bk[0], bk[1]);
-          mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
-        }
-      }
-
-      // Scale, cap and mask; online softmax per row.
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int t = it * kBlockK + n * 8 + 2 * c4 + e;
-          const bool in_range = t < Skv;
-          const int kp = in_range ? kv_pos[(long)b * Skv + t] : -1;
+          const int t = t0 + n * 8 + 2 * c4 + e;
+          kp[n][e] = t < k1 ? kv_pos[(long)b * Skv + t] : -1;
+        }
+      cp_async_wait_one();
+      __syncwarp();
+      const __nv_bfloat16* Kt = wbuf + st * 2 * WK * KVS;
+      const __nv_bfloat16* Vt = Kt + WK * KVS;
+
+      // Scores: 16 rows x 16 keys, two n-tiles of 8 keys.
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            float s = sc[n][2 * half + e] * scale;
-            if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-            bool valid = kp >= 0;
-            if (causal) {
-              const int rel = (half ? qp1 : qp0) - kp;
-              valid = valid && rel >= 0;
-              if (window > 0) valid = valid && rel < window;
-            }
-            s = valid ? s : kNeg;
-            if (!in_range) s = -INFINITY;
-            sc[n][2 * half + e] = s;
-          }
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        unsigned a[4], bk[4];
+        ldsm_x4(Qs + (lane & 15) * QS + ks * 16 + (lane >> 4) * 8, a);
+        ldsm_x4(Kt + ((lane & 7) + ((lane >> 4) << 3)) * KVS + ks * 16 + ((lane >> 3) & 1) * 8,
+                bk);
+        mma_bf16(sc[0], a, bk[0], bk[1]);
+        mma_bf16(sc[1], a, bk[2], bk[3]);
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in_range = t0 + n * 8 + 2 * c4 + e < k1;
+          sc[n][e] =
+              masked_score(sc[n][e] * scale, qp0, kp[n][e], in_range, causal, window, softcap);
+          sc[n][2 + e] =
+              masked_score(sc[n][2 + e] * scale, qp1, kp[n][e], in_range, causal, window, softcap);
           mx0 = fmaxf(mx0, sc[n][e]);
           mx1 = fmaxf(mx1, sc[n][2 + e]);
         }
       }
-#pragma unroll
-      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
       const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
       m0 = mn0;
       m1 = mn1;
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < 2; ++n) {
         sc[n][0] = expf(sc[n][0] - mn0);
         sc[n][1] = expf(sc[n][1] - mn0);
         sc[n][2] = expf(sc[n][2] - mn1);
@@ -512,129 +576,745 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
       l0 = l0 * al0 + ls0;
       l1 = l1 * al1 + ls1;
+      const unsigned pa[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                              pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        o[n][0] *= al0;
-        o[n][1] *= al0;
-        o[n][2] *= al1;
-        o[n][3] *= al1;
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned bv[4];
+        ldsm_x4_trans(Vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * KVS + np * 16 + (lane >> 4) * 8,
+                      bv);
+        o[2 * np][0] *= al0;
+        o[2 * np][1] *= al0;
+        o[2 * np][2] *= al1;
+        o[2 * np][3] *= al1;
+        o[2 * np + 1][0] *= al0;
+        o[2 * np + 1][1] *= al0;
+        o[2 * np + 1][2] *= al1;
+        o[2 * np + 1][3] *= al1;
+        mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
       }
+      __syncwarp();  // the stage is refilled two subtiles later
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    __syncthreads();  // every warp is done with its subtiles: the merge area is free
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float* a0 = merge_acc + (warp * RB + gq) * HD + n * 8 + 2 * c4;
+      a0[0] = o[n][0];
+      a0[1] = o[n][1];
+      a0[8 * HD] = o[n][2];
+      a0[8 * HD + 1] = o[n][3];
+    }
+    if (c4 == 0) {
+      merge_ml[2 * (warp * RB + gq)] = m0;
+      merge_ml[2 * (warp * RB + gq) + 1] = l0;
+      merge_ml[2 * (warp * RB + gq + 8)] = m1;
+      merge_ml[2 * (warp * RB + gq + 8) + 1] = l1;
+    }
+  } else {
+    // fp32: each warp takes subtiles of 32 keys, one key per lane, with K
+    // and V read from global memory (L1 and L2 keep the rows the lanes share).
+    constexpr int DJ = HD / 32;
+    const float* Qs = reinterpret_cast<const float*>(smem);
+    float* Pw = reinterpret_cast<float*>(work) + warp * RB * WK;
+    int qp[RB];
+    float m[RB], l[RB], acc[RB][DJ];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      qp[r] = row_pos(row0 + r);
+      m[r] = kNeg;
+      l[r] = 0.f;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[r][j] = 0.f;
+    }
+    for (int t0 = k0 + warp * WK; t0 < k1; t0 += kWarps * WK) {
+      const int t = t0 + lane;
+      const bool in_range = t < k1;
+      const int kp = in_range ? kv_pos[(long)b * Skv + t] : -1;
+      float sc[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) sc[r] = 0.f;
+      if (in_range) {
+        const T* krow = kb + (long)t * kv_step;
+#pragma unroll 2
+        for (int d = 0; d < HD; d += 4) {
+          float kf[4];
+          load_chunk(krow + d, kf);
+#pragma unroll
+          for (int r = 0; r < RB; ++r) {
+            const float4 qq = *reinterpret_cast<const float4*>(Qs + r * QS + d);
+            sc[r] += qq.x * kf[0] + qq.y * kf[1] + qq.z * kf[2] + qq.w * kf[3];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float s = masked_score(sc[r], qp[r], kp, in_range, causal, window, softcap);
+        const float m_new = fmaxf(m[r], warp_max(s));
+        const float p = expf(s - m_new);
+        const float alpha = expf(m[r] - m_new);
+        l[r] = l[r] * alpha + warp_sum(p);
+        m[r] = m_new;
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[r][j] *= alpha;
+        Pw[r * WK + lane] = p;
+      }
+      __syncwarp();
+      const int n = min(WK, k1 - t0);
+      for (int c = 0; c < n; ++c) {
+        const T* vrow = vb + (long)(t0 + c) * kv_step;
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const float vv = to_float(vrow[lane + 32 * j]);
+#pragma unroll
+          for (int r = 0; r < RB; ++r) acc[r][j] += Pw[r * WK + c] * vv;
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // the merge area overlaps the probability tiles
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) merge_acc[(warp * RB + r) * HD + lane + 32 * j] = acc[r][j];
+      if (lane == 0) {
+        merge_ml[2 * (warp * RB + r)] = m[r];
+        merge_ml[2 * (warp * RB + r) + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
 
-      // O += P V: P (16 x 32) in two k-steps of 16 keys, straight from the
-      // score fragments; V fragments by transposing ldmatrix.
+  // Merge the warps' partials (a warp that saw no key has l = 0, acc = 0)
+  // and write the split's partial. One thread per row turns each warp's
+  // (m, l) into its weight in place.
+  const long p0 = (((long)b * nkv + kh) * rows + row0) * n_splits + split;
+  if (tid < RB && row0 + tid < rows) {
+    float M = kNeg, sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const unsigned pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-                                pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-                                pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-                                pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, merge_ml[2 * (w * RB + tid)]);
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          unsigned bv[4];
-          ldsm_x4_trans(Vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + np * 16 +
-                            (lane >> 4) * 8,
-                        bv);
-          mma_bf16(o[2 * np], pa, bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+    for (int w = 0; w < kWarps; ++w) {
+      float* ml = merge_ml + 2 * (w * RB + tid);
+      ml[0] = expf(ml[0] - M);
+      sum += ml[1] * ml[0];
+    }
+    part_ml[2 * (p0 + (long)tid * n_splits)] = M;
+    part_ml[2 * (p0 + (long)tid * n_splits) + 1] = sum;
+  }
+  __syncthreads();
+  for (int i = tid; i < RB * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    if (row0 + r >= rows) break;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      a += merge_acc[(w * RB + r) * HD + d] * merge_ml[2 * (w * RB + r)];
+    part_acc[(p0 + (long)r * n_splits) * HD + d] = a;
+  }
+}
+
+constexpr int kMaxSplits = 256;
+
+// Block-wide max or sum over blockDim.x (a multiple of 32, at most 1024)
+// threads; every thread gets the result.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  x = kMax ? warp_max(x) : warp_sum(x);
+  const int warp = threadIdx.x >> 5, n = blockDim.x >> 5;
+  __syncthreads();  // red is free
+  if ((threadIdx.x & 31) == 0) red[warp] = x;
+  __syncthreads();
+  x = red[0];
+  for (int w = 1; w < n; ++w) x = kMax ? fmaxf(x, red[w]) : x + red[w];
+  return x;
+}
+
+// Grid (rows, nkv, B), hd threads: merge the splits' partials of one row by
+// the log-sum-exp rule and write the output. The splits' weights go to
+// shared memory first, so the accumulator loads are independent.
+template <typename T>
+__global__ void flash_combine_kernel(const float* __restrict__ part_ml,
+                                     const float* __restrict__ part_acc, T* __restrict__ out,
+                                     int Sq, int nq, int nkv, int hd, int n_splits) {
+  __shared__ float weight[kMaxSplits];
+  __shared__ float red[32];
+  const int g = nq / nkv, rows = g * Sq;
+  const int rr = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const long p0 = (((long)b * nkv + kh) * rows + rr) * n_splits;
+  float M = kNeg;
+  for (int s = d; s < n_splits; s += blockDim.x) M = fmaxf(M, part_ml[2 * (p0 + s)]);
+  M = block_reduce<true>(M, red);
+  float sum = 0.f;
+  for (int s = d; s < n_splits; s += blockDim.x) {
+    weight[s] = expf(part_ml[2 * (p0 + s)] - M);
+    sum += part_ml[2 * (p0 + s) + 1] * weight[s];
+  }
+  sum = block_reduce<false>(sum, red);  // its barriers also publish `weight`
+  float a = 0.f;
+#pragma unroll 8
+  for (int sp = 0; sp < n_splits; ++sp) {
+    a += part_acc[(p0 + sp) * hd + d] * weight[sp];
+  }
+  out[(((long)b * Sq + rr / g) * nq + (long)kh * g + rr % g) * hd + d] =
+      from_float<T>(a / fmaxf(sum, 1e-30f));
+}
+
+// ---------------------------------------------------------------------------
+// Prefill path: bf16, Sq >= 64, hd 64/128/256. wgmma fed by TMA.
+// ---------------------------------------------------------------------------
+constexpr int kPfRows = 64;                          // query rows per consumer warpgroup
+constexpr int kPfConsumers = 2;                      // consumer warpgroups
+constexpr int kPfBlockQ = kPfRows * kPfConsumers;    // query rows per block
+constexpr int kPfKeys = 64;                          // keys per kv tile
+constexpr int kPfThreads = (kPfConsumers + 1) * 128; // + one producer warpgroup
+constexpr int kAtomBytes = 64 * 128;  // 64 rows of one 128-byte-swizzled column block
+constexpr int kMaxSmem = 232448;
+
+// Shared memory, from a 1024-aligned base: Q (per consumer, hd/64 column
+// blocks of 64 rows x 64 dims), K and V stages (hd/64 column blocks of 64
+// keys each), the mbarriers, three ints (q_pos min, max, live tile count)
+// and the list of live tiles.
+template <int HD>
+struct PfTile {
+  static constexpr int kCB = HD / 64;
+  static constexpr int kStages = HD == 256 ? 2 : 4;
+  static constexpr int kQBytes = kPfConsumers * kCB * kAtomBytes;
+  static constexpr int kKVBytes = kCB * kAtomBytes;  // one K or V tile
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kBars = 1 + 4 * kStages;  // full q; full and empty k and v per stage
+  static constexpr int kMiscOff = kBarOff + 8 * kBars;
+  static constexpr int kListOff = kMiscOff + 16;
+  static size_t bytes(int n_tiles) { return 1024 + kListOff + 4 * (size_t)n_tiles; }
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses to wgmma's registers across it.
+__device__ __forceinline__ void reg_fence(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16 from shared memory) * B (16 x 64 from
+// shared memory, K-major); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16 bf16 in registers) * B (16 x 64 from
+// shared memory, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, "
+      "%36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Grid (B, nkv, hd / 32) of 512 threads: mean_v[b, kh, :] = the mean of
+// V[b, :, kh, :] over the Skv slots, what a query row with no valid slot
+// returns.
+__global__ void __launch_bounds__(512)
+mean_v_kernel(const __nv_bfloat16* __restrict__ v, float* __restrict__ mean_v, int Skv, int nkv,
+              int hd) {
+  __shared__ float part[16][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = blockIdx.z * 32 + lane, kh = blockIdx.y, b = blockIdx.x;
+  const long step = (long)nkv * hd;
+  const __nv_bfloat16* vb = v + ((long)b * Skv * nkv + kh) * hd + d;
+  float s = 0.f;
+#pragma unroll 8
+  for (int t = warp; t < Skv; t += 16) s += __bfloat162float(vb[t * step]);
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < 16; ++w) total += part[w][lane];
+    mean_v[((long)b * nkv + kh) * hd + d] = total / (float)Skv;
+  }
+}
+
+// Grid (query blocks of 128 rows, nq, B), kPfThreads threads. Warpgroups 0
+// and 1 consume, warpgroup 2 produces (one thread issues every TMA copy).
+// Consumer warpgroup c, warp w owns query rows q0 + 64c + 16w + (0..15);
+// with g = lane / 4 and c4 = lane % 4 a thread holds rows g and g + 8 of
+// the warp's 16 and, in wgmma's accumulator layout, keys (dims) 8n + 2c4
+// and + 1 of n-tile n: element 4n + {0, 1} for row g, 4n + {2, 3} for g + 8.
+template <int HD>
+__global__ void __launch_bounds__(kPfThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, const float* __restrict__ mean_v,
+                     __nv_bfloat16* __restrict__ out, int Sq, int Skv, int nq, int nkv,
+                     int causal, int window, float softcap, float scale) {
+  using L = PfTile<HD>;
+  constexpr int CB = L::kCB;
+  constexpr int ST = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t bar0 = sbase + L::kBarOff;  // barrier i at bar0 + 8 i
+  auto full_k = [&](int st) { return bar0 + 8 * (1 + st); };
+  auto full_v = [&](int st) { return bar0 + 8 * (1 + ST + st); };
+  auto empty_k = [&](int st) { return bar0 + 8 * (1 + 2 * ST + st); };
+  auto empty_v = [&](int st) { return bar0 + 8 * (1 + 3 * ST + st); };
+  int* misc = reinterpret_cast<int*>(smem + L::kMiscOff);
+  int* list = reinterpret_cast<int*>(smem + L::kListOff);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kPfBlockQ;  // the most kv tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (nq / nkv);
+  const int n_tiles = (Skv + kPfKeys - 1) / kPfKeys;
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty_k(st), kPfConsumers * 4);  // one arrival per consumer warp
+      mbar_init(empty_v(st), kPfConsumers * 4);
+    }
+    misc[0] = INT_MAX;
+    misc[1] = INT_MIN;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid < kPfBlockQ && q0 + tid < Sq) {
+    const int qp = q_pos[(long)b * Sq + q0 + tid];
+    atomicMin(&misc[0], qp);
+    atomicMax(&misc[1], qp);
+  }
+  __syncthreads();
+  // A kv tile is live unless no (row, key) pair of the block can be valid:
+  // no slot holds a position, or, causally, every position is past the
+  // block's last query position or at least `window` behind its first.
+  const long long qmin = misc[0], qmax = misc[1];
+  for (int t = warp; t < n_tiles; t += kPfThreads / 32) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int j = lane; j < kPfKeys; j += 32) {
+      const int s = t * kPfKeys + j;
+      const int kp = s < Skv ? kv_pos[(long)b * Skv + s] : -1;
+      if (kp >= 0) {
+        lo = min(lo, kp);
+        hi = max(hi, kp);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    bool live = lo <= hi;
+    if (causal) {
+      live = live && (long long)lo <= qmax;
+      if (window > 0) live = live && (long long)hi > qmin - window;
+    }
+    if (lane == 0) list[t] = live;
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact the flags into the list of live tiles, in order
+    int n = 0;
+    for (int base = 0; base < n_tiles; base += 32) {
+      const bool live = base + lane < n_tiles && list[base + lane];
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      __syncwarp();
+      if (live) list[n + __popc(mask & ((1u << lane) - 1u))] = base + lane;
+      n += __popc(mask);
+      __syncwarp();
+    }
+    if (lane == 0) misc[2] = n;
+  }
+  __syncthreads();
+  const int n_live = misc[2];
+
+  const int wg = warp >> 2;
+  if (wg == kPfConsumers) {
+    // Producer warpgroup: one thread keeps the ring of K/V stages full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == kPfConsumers * 128) {
+      mbar_expect_tx(bar0, kPfBlockQ * HD * 2);
+      for (int c = 0; c < kPfConsumers; ++c)
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_4d(sbase + (c * CB + cb) * kAtomBytes, &tq, cb * 64, h, q0 + c * kPfRows, b,
+                      bar0);
+      for (int i = 0; i < n_live; ++i) {
+        const int st = i % ST, ph = (i / ST) & 1;
+        const int t0 = list[i] * kPfKeys;
+        const uint32_t ks = sbase + L::kQBytes + st * L::kKVBytes;
+        const uint32_t vs = sbase + L::kQBytes + (ST + st) * L::kKVBytes;
+        mbar_wait(empty_k(st), ph ^ 1);
+        mbar_expect_tx(full_k(st), kPfKeys * HD * 2);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_4d(ks + cb * kAtomBytes, &tk, cb * 64, kh, t0, b, full_k(st));
+        mbar_wait(empty_v(st), ph ^ 1);
+        mbar_expect_tx(full_v(st), kPfKeys * HD * 2);
+        for (int cb = 0; cb < CB; ++cb)
+          tma_load_4d(vs + cb * kAtomBytes, &tv, cb * 64, kh, t0, b, full_v(st));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int gq = lane >> 2, c4 = lane & 3;
+    const int r0 = q0 + wg * kPfRows + (warp & 3) * 16 + gq;  // rows r0 and r0 + 8
+    const int qp0 = r0 < Sq ? q_pos[(long)b * Sq + r0] : -(1 << 30);
+    const int qp1 = r0 + 8 < Sq ? q_pos[(long)b * Sq + r0 + 8] : -(1 << 30);
+    const int* kvp = kv_pos + (long)b * Skv;
+    const uint32_t qs = sbase + wg * CB * kAtomBytes;
+    float o[CB][32];
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
+    float m0 = kNeg, m1 = kNeg, row_sum0 = 0.f, row_sum1 = 0.f;  // sums: this thread's share
+    float s[32];                       // scores of the tile
+    uint32_t pa[kPfKeys / 16][4];      // its P, as wgmma's A operand
+    float alpha0 = 1.f, alpha1 = 1.f;  // rescale of O for the tile
+
+    // S = Q K^T for tile i: 64 rows x 64 keys, hd / 16 steps of 16 dims.
+    // Both operands K-major; a step advances 32 bytes inside a swizzled row.
+    auto issue_scores = [&](int i) {
+      const int st = i % ST;
+      const uint32_t ks = sbase + L::kQBytes + st * L::kKVBytes;
+      mbar_wait(full_k(st), (i / ST) & 1);
+      reg_fence(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kAtomBytes + (kk & 3) * 32;
+        wgmma_ss(s, smem_desc(qs + off, 16, 1024), smem_desc(ks + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // Scale, cap and mask tile i's scores; online softmax per row; P to p.
+    auto softmax = [&](int i, uint32_t (&p)[kPfKeys / 16][4]) {
+      const int t0 = list[i] * kPfKeys;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t = t0 + n * 8 + 2 * c4 + e;
+          const bool in_range = t < Skv;
+          const int kp = in_range ? kvp[t] : -1;
+          s[4 * n + e] =
+              masked_score(s[4 * n + e] * scale, qp0, kp, in_range, causal, window, softcap);
+          s[4 * n + 2 + e] =
+              masked_score(s[4 * n + 2 + e] * scale, qp1, kp, in_range, causal, window, softcap);
+          mx0 = fmaxf(mx0, s[4 * n + e]);
+          mx1 = fmaxf(mx1, s[4 * n + 2 + e]);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      alpha0 = __expf(m0 - mn0);
+      alpha1 = __expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float tile_sum0 = 0.f, tile_sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[4 * n] = __expf(s[4 * n] - mn0);
+        s[4 * n + 1] = __expf(s[4 * n + 1] - mn0);
+        s[4 * n + 2] = __expf(s[4 * n + 2] - mn1);
+        s[4 * n + 3] = __expf(s[4 * n + 3] - mn1);
+        tile_sum0 += s[4 * n] + s[4 * n + 1];
+        tile_sum1 += s[4 * n + 2] + s[4 * n + 3];
+      }
+      row_sum0 = row_sum0 * alpha0 + tile_sum0;
+      row_sum1 = row_sum1 * alpha1 + tile_sum1;
+      // P as wgmma's A operand: k-step j takes keys 16j .. 16j + 15.
+#pragma unroll
+      for (int j = 0; j < kPfKeys / 16; ++j) {
+        p[j][0] = pack_bf16(s[8 * j], s[8 * j + 1]);
+        p[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        p[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        p[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
+    };
+
+    // O += P V for tile i, P in p: V is MN-major (dims contiguous); a
+    // k-step of 16 keys is two 8-key groups 1024 bytes apart, a column
+    // block 64 dims.
+    auto issue_pv = [&](int i, uint32_t (&p)[kPfKeys / 16][4]) {
+      const int st = i % ST;
+      const uint32_t vs = sbase + L::kQBytes + (ST + st) * L::kKVBytes;
+      mbar_wait(full_v(st), (i / ST) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kstep = 0; kstep < kPfKeys / 16; ++kstep) {
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb)
+          wgmma_rs(o[cb], p[kstep], smem_desc(vs + cb * kAtomBytes + kstep * 2048, 1024, 1024));
+      }
+      wgmma_commit();
+    };
+    // A K tile is free once its scores are in, a V tile once P.V is done.
+    auto release_k = [&](int i) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_k(i % ST));
+    };
+    auto release_v = [&](int i) {
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) reg_fence(o[cb]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_v(i % ST));
+    };
+    // Each tile: the scores, the softmax, then P.V. The two consumer
+    // warpgroups are independent, so the tensor cores can run one's
+    // products while the other computes its softmax.
+    mbar_wait(bar0, 0);
+    for (int i = 0; i < n_live; ++i) {
+      issue_scores(i);
+      wgmma_wait0();
+      release_k(i);
+      reg_fence(s);
+      softmax(i, pa);
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[cb][4 * n] *= alpha0;
+          o[cb][4 * n + 1] *= alpha0;
+          o[cb][4 * n + 2] *= alpha1;
+          o[cb][4 * n + 3] *= alpha1;
+        }
+      }
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) reg_fence(o[cb]);
+      issue_pv(i, pa);
+      wgmma_wait0();
+      release_v(i);
+    }
+
+    row_sum0 = quad_sum(row_sum0);
+    row_sum1 = quad_sum(row_sum1);
+    const float* mv = mean_v + ((long)b * nkv + kh) * HD + 2 * c4;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (row >= Sq) continue;
+      // a row that met no valid key in any tile has none anywhere: it takes
+      // the mean of V over the Skv slots
+      const bool none = (half ? m1 : m0) == kNeg;
+      const float dn = fmaxf(half ? row_sum1 : row_sum0, 1e-30f);
+      __nv_bfloat16* orow = out + (((long)b * Sq + row) * nq + h) * HD + 2 * c4;
+#pragma unroll
+      for (int cb = 0; cb < CB; ++cb) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int d = cb * 64 + n * 8;
+          const float x0 = none ? mv[d] : o[cb][4 * n + 2 * half] / dn;
+          const float x1 = none ? mv[d + 1] : o[cb][4 * n + 2 * half + 1] / dn;
+          *reinterpret_cast<unsigned*>(orow + d) = pack_bf16(x0, x1);
         }
       }
     }
-    __syncthreads();  // stage `st` is refilled by the next iteration's copy
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
-  }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = row0 + 8 * half;
-    if (s < Sq) {
-      const float dn = half ? d1 : d0;
-      __nv_bfloat16* orow = out + ((long)b * Sq + s) * q_step + (long)h * HD + 2 * c4;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-        *reinterpret_cast<unsigned*>(orow + 8 * n) =
-            pack_bf16(o[n][2 * half] / dn, o[n][2 * half + 1] / dn);
-    }
   }
 }
 
-template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const int* q_pos, const int* kv_pos, void* out, int B,
-                       int Sq, int Skv, int nq, int nkv, int causal, int window,
-                       float softcap, cudaStream_t stream) {
-  using L = MmaTile<HD>;
-  auto kern = flash_fwd_mma_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda.so.1 the process already loaded.
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// TMA map of a [B, rows, heads, hd] bf16 tensor whose boxes are 64 rows x
+// 64 dims of one head, 128-byte swizzled; rows past `rows` read as zeros.
+bool head_rows_map(CUtensorMap* map, const void* base, int B, int rows, int heads, int hd) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)rows * heads * hd * 2};
+  const cuuint32_t box[4] = {64, 1, kPfKeys, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const int *q_pos, *kv_pos;
+  void* out;
+  float* scratch;
+  int B, Sq, Skv, nq, nkv, causal, window, keys_per_split;
+  float softcap, scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD>
+cudaError_t launch_cores(const Args& a) {
+  using L = Tile<T, HD>;
+  auto kern = flash_fwd_kernel<T, HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kMmaBlockQ - 1) / kMmaBlockQ, nq, B);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), q_pos, kv_pos,
-      static_cast<__nv_bfloat16*>(out), Sq, Skv, nq, nkv, causal, window, softcap,
-      (float)(1.0 / sqrt((double)HD)));
+  const dim3 grid((a.Sq + L::kBlockQ - 1) / L::kBlockQ, a.nq, a.B);
+  kern<<<grid, kThreads, L::kBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.q_pos,
+      a.kv_pos, static_cast<T*>(a.out), a.Sq, a.Skv, a.nq, a.nkv, a.causal, a.window, a.softcap,
+      a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, int R>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int nq, int nkv, int causal, int window,
-                   float softcap, cudaStream_t stream) {
-  using L = Tile<T, HD, R>;
-  auto kern = flash_fwd_kernel<T, HD, R>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
+// scratch: (m, l) of every partial, then their accumulators.
+template <typename T, int HD>
+cudaError_t launch_decode(const Args& a) {
+  using L = DecodeTile<T, HD>;
+  if (a.keys_per_split <= 0) return cudaErrorInvalidValue;
+  const int rows = a.nq / a.nkv * a.Sq;
+  const int row_tiles = (rows + L::kRowsPerBlock - 1) / L::kRowsPerBlock;
+  const int n_splits = (a.Skv + a.keys_per_split - 1) / a.keys_per_split;
+  if (n_splits > kMaxSplits) return cudaErrorInvalidValue;
+  float* part_ml = a.scratch;
+  float* part_acc = a.scratch + 2 * (long)a.B * a.nkv * rows * n_splits;
+  auto kern = flash_decode_kernel<T, HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + L::kBlockQ - 1) / L::kBlockQ, nq, B);
-  kern<<<grid, kThreads, L::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), Sq, Skv,
-      nq, nkv, causal, window, softcap, (float)(1.0 / sqrt((double)HD)));
+  kern<<<dim3(n_splits, a.nkv * row_tiles, a.B), kThreads, L::kBytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.q_pos,
+      a.kv_pos, part_ml, part_acc, a.Sq, a.Skv, a.nq, a.nkv, a.keys_per_split, a.causal, a.window,
+      a.softcap, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_combine_kernel<T><<<dim3(rows, a.nkv, a.B), HD, 0, a.stream>>>(
+      part_ml, part_acc, static_cast<T*>(a.out), a.Sq, a.nq, a.nkv, HD, n_splits);
+  return cudaGetLastError();
+}
+
+// scratch: mean_v [B, nkv, HD].
+template <int HD>
+cudaError_t launch_prefill(const Args& a) {
+  using L = PfTile<HD>;
+  const int n_tiles = (a.Skv + kPfKeys - 1) / kPfKeys;
+  const size_t bytes = L::bytes(n_tiles);
+  if (bytes > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!head_rows_map(&tq, a.q, a.B, a.Sq, a.nq, HD) ||
+      !head_rows_map(&tk, a.k, a.B, a.Skv, a.nkv, HD) ||
+      !head_rows_map(&tv, a.v, a.B, a.Skv, a.nkv, HD))
+    return cudaErrorInvalidValue;
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  mean_v_kernel<<<dim3(a.B, a.nkv, HD / 32), 512, 0, a.stream>>>(v, a.scratch, a.Skv, a.nkv, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kern = flash_prefill_kernel<HD>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + kPfBlockQ - 1) / kPfBlockQ, a.nq, a.B);
+  kern<<<grid, kPfThreads, bytes, a.stream>>>(tq, tk, tv, a.q_pos, a.kv_pos, a.scratch,
+                                              static_cast<__nv_bfloat16*>(a.out), a.Sq, a.Skv,
+                                              a.nq, a.nkv, a.causal, a.window, a.softcap, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        const int* q_pos, const int* kv_pos, void* out, int B,
-                        int Sq, int Skv, int nq, int nkv, int causal,
-                        int window, float softcap, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (Sq >= kMmaBlockQ)
-      return launch_mma<HD>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq, nkv,
-                            causal, window, softcap, stream);
+cudaError_t launch_path(const Args& a) {
+  if (a.Sq < kDecodeMaxSq) return launch_decode<T, HD>(a);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
+    return launch_prefill<HD>(a);
+  } else {
+    return launch_cores<T, HD>(a);
   }
-  if (Sq >= kWarps * 8)
-    return launch<T, HD, 8>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq, nkv,
-                            causal, window, softcap, stream);
-  return launch<T, HD, 1>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq, nkv,
-                          causal, window, softcap, stream);
 }
 
 template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      const int* q_pos, const int* kv_pos, void* out, int B,
-                      int Sq, int Skv, int nq, int nkv, int causal, int window,
-                      float softcap, cudaStream_t stream) {
+cudaError_t launch_hd(int hd, const Args& a) {
   switch (hd) {
     case 32:
-      return launch_rows<T, 32>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq,
-                                nkv, causal, window, softcap, stream);
+      return launch_path<T, 32>(a);
     case 64:
-      return launch_rows<T, 64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq,
-                                nkv, causal, window, softcap, stream);
+      return launch_path<T, 64>(a);
     case 128:
-      return launch_rows<T, 128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq,
-                                 nkv, causal, window, softcap, stream);
+      return launch_path<T, 128>(a);
     case 256:
-      return launch_rows<T, 256>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, nq,
-                                 nkv, causal, window, softcap, stream);
+      return launch_path<T, 256>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -643,25 +1323,22 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means none, softcap <= 0
-// means none. q, k, v and out must be 16-byte aligned. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, const void* q_pos,
-                                         const void* kv_pos, void* out,
-                                         int dtype, int B, int Sq, int Skv,
-                                         int nq, int nkv, int hd, int causal,
-                                         int window, float softcap,
-                                         void* stream) {
+// means none. q, k, v and out must be 16-byte aligned. scratch is fp32 and
+// depends on the path: for Sq < 64, (2 + hd) floats per (batch, kv head,
+// row, split) with rows = nq / nkv * Sq and ceil(Skv / keys_per_split)
+// splits; for bf16 with Sq >= 64 and hd >= 64, B * nkv * hd floats;
+// otherwise none. Returns the cudaError_t of the launches (0 on success).
+extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                         const void* q_pos, const void* kv_pos, void* out,
+                                         void* scratch, int dtype, int B, int Sq, int Skv,
+                                         int nq, int nkv, int hd, int causal, int window,
+                                         float softcap, int keys_per_split, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0)
     return (int)cudaErrorInvalidValue;
-  const int* qp = static_cast<const int*>(q_pos);
-  const int* kp = static_cast<const int*>(kv_pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_hd<float>(hd, q, k, v, qp, kp, out, B, Sq, Skv, nq, nkv,
-                                 causal, window, softcap, s);
-  if (dtype == 1)
-    return (int)launch_hd<__nv_bfloat16>(hd, q, k, v, qp, kp, out, B, Sq, Skv,
-                                         nq, nkv, causal, window, softcap, s);
+  Args a{q, k, v, static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos), out,
+         static_cast<float*>(scratch), B, Sq, Skv, nq, nkv, causal, window, keys_per_split,
+         softcap, (float)(1.0 / sqrt((double)hd)), static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_hd<float>(hd, a);
+  if (dtype == 1) return (int)launch_hd<__nv_bfloat16>(hd, a);
   return (int)cudaErrorInvalidValue;
 }

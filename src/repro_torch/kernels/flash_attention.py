@@ -3,10 +3,20 @@
 `repro.kernels.flash_attention.flash_attention`.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version in `ref.py`. `flash_attention.launches` counts kernel launches.
+version in `ref.py`. `flash_attention.launches` counts wrapper calls that
+launched the kernel. The path is chosen by dtype and shape alone:
+
+* Sq < DECODE_MAX_SQ (decode): split-KV, two launches (the splits' partials,
+  then their merge); `decode_splits` plans the splits and the wrapper
+  allocates the partials' scratch.
+* bf16, Sq >= DECODE_MAX_SQ, hd in WGMMA_HEAD_DIMS (prefill): wgmma fed by
+  TMA, skipping kv tiles that the mask empties; two launches (the mean of V,
+  for rows with no valid slot, then the attention).
+* otherwise (fp32 prefill, bf16 at hd 32): CUDA cores, one launch.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -15,7 +25,38 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
 HEAD_DIMS = (32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DECODE_MAX_SQ = 64
+SPLIT_KEYS = 64          # a decode split covers a multiple of this many keys
+TARGET_BLOCKS = 132      # one block per SM of an H100
+
+
+def decode_rows(dtype) -> int:
+    """Query rows one decode block holds: an mma M tile in bf16, 8 in fp32."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def decode_splits(B: int, Sq: int, nq: int, nkv: int, Skv: int, dtype) -> tuple[int, int]:
+    """(keys per split, split count) of a decode call: splits of a multiple
+    of SPLIT_KEYS keys, as many as keep the grid of B x nkv x row tiles x
+    splits blocks within about TARGET_BLOCKS; split i covers keys
+    [i * keys, min(Skv, (i + 1) * keys)), every one non-empty."""
+    tiles = math.ceil(Skv / SPLIT_KEYS)
+    row_tiles = math.ceil(nq // nkv * Sq / decode_rows(dtype))
+    per = max(1, math.ceil(tiles * B * nkv * row_tiles / TARGET_BLOCKS))
+    keys = SPLIT_KEYS * per
+    return keys, math.ceil(Skv / keys)
+
+
+def _scratch(dtype, B, Sq, Skv, nq, nkv, hd) -> tuple[int, int]:
+    """(keys per split or 0, fp32 scratch elements) of the path this call takes."""
+    if Sq < DECODE_MAX_SQ:
+        keys, splits = decode_splits(B, Sq, nq, nkv, Skv, dtype)
+        return keys, B * nkv * (nq // nkv * Sq) * splits * (hd + 2)
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS:
+        return 0, B * nkv * hd
+    return 0, 0
 
 
 def _check(q, k, v, q_pos, kv_pos, window, softcap):
@@ -62,14 +103,16 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start 16-byte aligned (the kernel "
                          "copies 16-byte chunks)")
+    keys_per_split, n_scratch = _scratch(q.dtype, B, Sq, Skv, nq, nkv, hd)
     out = torch.empty_like(q)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = build.load().repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, Sq,
-            Skv, nq, nkv, hd, int(causal), window or 0,
-            float(softcap or 0.0), stream)
+            kv_pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            _DTYPE_CODE[q.dtype], B, Sq, Skv, nq, nkv, hd, int(causal),
+            window or 0, float(softcap or 0.0), keys_per_split, stream)
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
     flash_attention.launches += 1

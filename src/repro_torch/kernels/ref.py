@@ -43,10 +43,11 @@ def flash_attention_ref(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return out.reshape(B, Sq, nq, hd).to(q.dtype)
 
 
-def rglru_scan_ref(log_a, b):
-    """h_t = exp(log_a_t) h_{t-1} + b_t along dim 1, h_0 = 0. [B,S,W] fp32."""
+def rglru_scan_ref(log_a, b, h0=None):
+    """h_t = exp(log_a_t) h_{t-1} + b_t along dim 1 for [B,S,W] fp32, from
+    h0 ([B,W] fp32), or from zeros when h0 is None."""
     a = torch.exp(log_a)
-    h = torch.zeros_like(b[:, 0])
+    h = torch.zeros_like(b[:, 0]) if h0 is None else h0.clone()
     out = torch.empty_like(b)
     for t in range(b.shape[1]):
         h = a[:, t] * h + b[:, t]

@@ -5,8 +5,8 @@ Block:  x -> [gate branch: GeLU(W_g x)]
            -> [rec branch: W_x x -> causal conv1d -> RG-LRU]
         y = W_out (gate * rec)
 
-Prefill runs the scan through `kernels.ops.rglru_scan`; decode is the
-one-step update.
+Prefill runs the scan through `kernels.ops.rglru_scan`, with the incoming
+state as its initial state; decode is the one-step update.
 """
 from __future__ import annotations
 
@@ -57,12 +57,9 @@ def rglru_block(p, x, cfg, state=None):
         h = torch.exp(log_a[:, 0]) * state["h"].float() + b[:, 0]
         h_seq, new_h = h[:, None], h
     else:
-        h_seq = ops.rglru_scan(log_a.contiguous(), b.contiguous())
-        if state is not None:
-            # the incoming state folds into the whole scan outside the
-            # kernel: h_t += (prod a) h0
-            cum = torch.cumsum(log_a, dim=1)
-            h_seq = h_seq + torch.exp(cum) * state["h"].float()[:, None]
+        # the incoming state is the scan's initial state
+        h0 = None if state is None else state["h"].float().contiguous()
+        h_seq = ops.rglru_scan(log_a.contiguous(), b.contiguous(), h0)
         new_h = h_seq[:, -1]
 
     y = (gate * h_seq.to(x.dtype)) @ p["w_out"]

@@ -152,6 +152,26 @@ def test_rglru_block_matches_jax(model, S, with_state):
             assert np.abs(st[key].numpy() - np.asarray(sj[key])).max() < LAYER_TOL
 
 
+@pytest.mark.parametrize("S", [70])
+def test_rglru_prefill_with_state_matches_jax(model, S):
+    """Prefill from a nonzero incoming state: the port passes the state to
+    the scan as its initial state, the reference scans from zero and folds
+    the state in with exp(cumsum(log_a)). The two sum log_a in different
+    orders, so outputs and the new state agree within 1e-5 x max(1, |ref|)."""
+    cfg_j, cfg, params_j, params, _ = model
+    rng = np.random.default_rng(100 + S)
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    state = {"h": (4.0 * rng.normal(size=(2, cfg.lru_width))).astype(np.float32),
+             "conv": rng.normal(size=(2, cfg.conv_kernel - 1, cfg.lru_width)).astype(np.float32)}
+    yj, sj = jax_rglru_block(_layer(params_j, 0)["rec"], jnp.asarray(x), cfg_j,
+                             state=jax.tree.map(jnp.asarray, state), impl="pallas")
+    yt, st = rglru_block(params["layers"][0]["rec"], torch.from_numpy(x), cfg,
+                         state={k: torch.from_numpy(v) for k, v in state.items()})
+    for got, want in ((yt, yj), (st["h"], sj["h"]), (st["conv"], sj["conv"])):
+        want = np.asarray(want)
+        assert np.all(np.abs(got.numpy() - want) <= 1e-5 * np.maximum(1.0, np.abs(want)))
+
+
 @pytest.mark.parametrize("S", [20, 70])
 def test_attention_cache_writes_match_jax(model, S):
     """Prefill (S < cap, and S >= cap where the ring buffer keeps the last cap
