@@ -14,7 +14,12 @@ Phases, each fatal on failure:
   5. check that continuous batching equals isolated generation on the card
      (full width, reduced depth, fp32), and that the reduced model on the
      card gives the logits it gives on the CPU;
-  6. time each kernel at the serving shapes beside its bound, its plain
+  6. run the GenFV round loop (GenFVRunner, fp32): three rounds of the
+     paper's ResNet-18 at full width on CIFAR-10's sizes, timed by stage;
+     the card's float64 planner against the numpy planner on those fleets;
+     the reduced run on the card against the same run on the CPU; and one
+     fleet step at two buckets (this path runs no hand-written kernel);
+  7. time each kernel at the serving shapes beside its bound, its plain
      version and, for attention, PyTorch's scaled_dot_product_attention.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -40,11 +46,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.emd import data_weights, emd_many  # noqa: E402
+from repro_torch.core.planner import bucket_size  # noqa: E402
+from repro_torch.core.two_scale import plan_round  # noqa: E402
+from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      rglru_scan_ref)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.tree import FlatSpec, tree_leaves, tree_map  # noqa: E402
 
 ARCH = "recurrentgemma-9b"
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, bf16 tensor-core rate, and
@@ -424,7 +435,7 @@ def serve(cfg, dtype, device, mix, slots, max_len):
 def serve_full_width(device):
     cfg = get_config(ARCH)
     rec, params = serve(cfg, torch.bfloat16, device, SERVE_MIX, slots=4, max_len=4096)
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     # ModelConfig.param_count() counts 3 * lru_width vector parameters per
     # recurrent block; the block (here and in the JAX package) holds 2: lam
     # and the conv bias.
@@ -446,17 +457,6 @@ def serve_full_width(device):
           f"{rec['launches']['flash_attention.decode']} in decode), "
           f"scan {rec['scan_launches']}")
     return rec
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +513,7 @@ def card_matches_cpu(device):
     cpu = torch.device("cpu")
     prompt_len, steps = 70, 4
     params = {cpu: api.init_params(torch.Generator().manual_seed(3), cfg, device=cpu)}
-    params[device] = _to(params[cpu], device)
+    params[device] = tree_map(lambda x: x.to(device), params[cpu])
     prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, size=(1, prompt_len)))
     prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(cfg)
     caches = {d: api.init_cache(cfg, 1, 96, torch.float32, d) for d in (cpu, device)}
@@ -533,16 +533,212 @@ def card_matches_cpu(device):
           f"logit error {worst:.3e} x max(1, max|logit|)")
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+# ---------------------------------------------------------------------------
+# Phase 6: the GenFV round loop
+# ---------------------------------------------------------------------------
+# The paper's ResNet-18 (64-128-256-512) on CIFAR-10's sizes, over the
+# procedural dataset, otherwise RunConfig()'s defaults.
+GENFV_FULL = dict(width_mult=1.0, train_size=50_000, test_size=10_000, rounds=3)
+GENFV_REDUCED = dict(rounds=2, train_size=400, test_size=64)
+# One round on the card against the same round on the CPU, from the same
+# weights. float32 training amplifies rounding along a round's 16 + 4 SGD
+# steps (tests/test_torch_genfv_baselines.py measures it), so the card is held to
+# the tolerances the CPU tests hold the port to against the JAX package.
+GENFV_PARAM_TOL = 2e-2      # max |delta| of the global parameters
+GENFV_LOSS_RTOL = 2e-3      # the round's loss, relative
+# DESIGN.md's planner contract: alpha bitwise, l/phi/t_bar to 1e-3, b_gen +-1
+PLAN_ATOL = 1e-3
+# The fleet step's aggregate across buckets on the card. cuDNN's default
+# algorithms are not deterministic (the same bucket twice differs too), so
+# the aggregate moves by a few 1e-6 between buckets; with
+# torch.backends.cudnn.deterministic it is bitwise, at about a quarter more
+# fleet-step time (PERF.md).
+BUCKET_TOL = 1e-4
+
+
+class RoundRecorder:
+    """A tracer for GenFVRunner (the `obs` it takes, which only opens spans):
+    times each span with the device synchronized at both edges."""
+    enabled = False
+
+    def __init__(self, device):
+        self.device = device
+        self.ms = {}
+
+    def span(self, name, key=None, **tags):
+        return _RoundSpan(self, name)
+
+
+class _RoundSpan:
+    def __init__(self, rec, name):
+        self.rec, self.name, self.sync = rec, name, None
+
+    def __enter__(self):
+        sync(self.rec.device)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        sync(self.rec.device)
+        self.rec.ms.setdefault(self.name, []).append(1e3 * (time.perf_counter() - self.t0))
+        return False
+
+
+def _flat(params):
+    return FlatSpec(params).flatten(params)
+
+
+def genfv_full_width(device):
+    """Three rounds at full width through begin_round / plan / finish_round,
+    each stage timed; returns the runner and a record per round."""
+    rec = RoundRecorder(device)
+    t0 = time.perf_counter()
+    runner = GenFVRunner(RunConfig(**GENFV_FULL), obs=rec, device=device)
+    sync(device)
+    n_params = _flat(runner.server.params).numel()
+    print(f"genfv: ResNet-18 width {runner.run.width_mult}, {n_params:,} parameters, "
+          f"cifar10 {GENFV_FULL['train_size']}/{GENFV_FULL['test_size']} images, "
+          f"{GENFV_FULL['rounds']} rounds; runner built in {time.perf_counter() - t0:.1f} s")
+    cfg = runner.cfg
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ops.flash_attention.launches = 0
+    ops.rglru_scan.launches = 0
+    rounds = []
+    for t in range(GENFV_FULL["rounds"]):
+        b_prev = runner.b_prev
+        sync(device)
+        t0 = time.perf_counter()
+        pending = runner.begin_round(t)
+        plan = runner.plan(pending)
+        log = runner.finish_round(pending, plan)
+        sync(device)
+        ms = {k: v[-1] for k, v in rec.ms.items()}
+        r = {"round": t, "selected": log.selected,
+             "bucket": bucket_size(log.selected) if log.selected else 0,
+             "b_gen": log.b_gen, "t_bar": log.t_bar, "bcd_iters": log.bcd_iters,
+             "loss": log.loss, "accuracy": log.accuracy, "planner_syncs": plan.syncs,
+             "plan_ms": ms["round/plan"], "generate_ms": ms["round/generate"],
+             "fleet_step_ms": ms["round/aggregate"], "eval_ms": ms["round/eval"],
+             "round_ms": 1e3 * (time.perf_counter() - t0)}
+        r["fleet_images_per_s"] = (log.selected * cfg.local_steps * cfg.batch_size
+                                   / (r["fleet_step_ms"] / 1e3))
+        rounds.append((pending, b_prev, plan, r))
+        print(f"genfv round {t}: selected {r['selected']}, bucket {r['bucket']}, "
+              f"b_gen {r['b_gen']}, t_bar {r['t_bar']:.4f} s, bcd_iters {r['bcd_iters']}, "
+              f"loss {r['loss']:.4f}, accuracy {r['accuracy']:.4f}; ms: plan "
+              f"{r['plan_ms']:.2f} ({r['planner_syncs']} syncs), generate + omega_a "
+              f"{r['generate_ms']:.2f}, fleet step {r['fleet_step_ms']:.2f} "
+              f"({r['fleet_images_per_s']:.0f} images/s of local SGD), eval "
+              f"{r['eval_ms']:.2f}, round {r['round_ms']:.2f}")
+        require(math.isfinite(r["loss"]) and 0.0 <= r["accuracy"] <= 1.0,
+                f"genfv round {t}: loss {r['loss']}, accuracy {r['accuracy']}")
+    flat = _flat(runner.server.params)
+    require(all(x.device == device for x in tree_leaves(runner.server.params)),
+            "the runner's parameters left the card")
+    require(bool(torch.isfinite(flat).all()), "non-finite global parameters")
+    require(ops.flash_attention.launches == 0 and ops.rglru_scan.launches == 0,
+            "the GenFV path launched a serving kernel")
+    peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
+            if device.type == "cuda" else "not measured")
+    print(f"genfv: peak memory allocated {peak}; hand-written kernel launches 0 "
+          f"(the path runs none)")
+    print(json.dumps({"genfv_rounds": [r for *_, r in rounds]}))
+    return runner, rounds
+
+
+def genfv_planner_contract(runner, rounds):
+    """The card's float64 plans of phase 6's rounds against the numpy
+    planner on the same fleets."""
+    for pending, b_prev, plan, r in rounds:
+        t0 = time.perf_counter()
+        ref = plan_round(runner.cfg, pending.fleet, runner.model_bits,
+                         runner.cfg.local_steps, b_prev=b_prev,
+                         alpha_override=pending.alpha, planner="numpy")
+        np_ms = 1e3 * (time.perf_counter() - t0)
+        what = f"planner round {r['round']}"
+        require(np.array_equal(ref.alpha, plan.alpha) and ref.selected == plan.selected,
+                f"{what}: alpha differs")
+        err = max([float(np.abs(ref.l - plan.l).max(initial=0.0)),
+                   float(np.abs(ref.phi - plan.phi).max(initial=0.0)),
+                   abs(ref.t_bar - plan.t_bar)])
+        require(err <= PLAN_ATOL, f"{what}: l/phi/t_bar differ by {err:.3e} > {PLAN_ATOL}")
+        require(abs(ref.b_gen - plan.b_gen) <= 1, f"{what}: b_gen {plan.b_gen} vs {ref.b_gen}")
+        print(f"{what}: card (torch, float64) vs numpy: alpha equal, l/phi/t_bar within "
+              f"{err:.3e}, b_gen {plan.b_gen} vs {ref.b_gen}, bcd_iters {plan.bcd_iters} vs "
+              f"{ref.bcd_iters}; numpy planner {np_ms:.2f} ms on the host")
+
+
+def genfv_card_matches_cpu(device):
+    """The reduced run on the card and on the CPU from the same weights;
+    each round starts both from the CPU's round-start parameters."""
+    cpu = torch.device("cpu")
+    runners = {d: GenFVRunner(RunConfig(**GENFV_REDUCED), device=d) for d in (cpu, device)}
+    worst_p = worst_l = 0.0
+    for t in range(GENFV_REDUCED["rounds"]):
+        runners[device].server.params = tree_map(lambda x: x.to(device),
+                                                 runners[cpu].server.params)
+        logs = {d: r.run_round(t) for d, r in runners.items()}
+        for f in ("selected", "b_gen", "dropped", "bcd_iters"):
+            require(getattr(logs[cpu], f) == getattr(logs[device], f),
+                    f"card vs CPU round {t}: {f} {getattr(logs[device], f)} != "
+                    f"{getattr(logs[cpu], f)}")
+        dl = abs(logs[device].loss - logs[cpu].loss) / abs(logs[cpu].loss)
+        dp = float((_flat(runners[device].server.params).cpu()
+                    - _flat(runners[cpu].server.params)).abs().max())
+        require(dl <= GENFV_LOSS_RTOL and dp <= GENFV_PARAM_TOL,
+                f"card vs CPU round {t}: loss {dl:.3e} (rtol {GENFV_LOSS_RTOL}), "
+                f"params {dp:.3e} (tol {GENFV_PARAM_TOL})")
+        worst_p, worst_l = max(worst_p, dp), max(worst_l, dl)
+    print(f"genfv card == CPU (reduced, {GENFV_REDUCED['rounds']} rounds): selected, b_gen, "
+          f"dropped, bcd_iters equal; loss within {worst_l:.3e} relative (tol "
+          f"{GENFV_LOSS_RTOL}), params within {worst_p:.3e} (tol {GENFV_PARAM_TOL})")
+
+
+def genfv_bucket_invariance(runner):
+    """One K=5 fleet step at full width at bucket 8, again at bucket 8, and
+    at bucket 16, with cuDNN's default algorithms (held to BUCKET_TOL) and
+    deterministic ones (held bitwise)."""
+    eng = runner.engine
+    rng = np.random.default_rng(0)
+    parts = [i for i, (_, y) in enumerate(runner.client_data) if len(y) >= 2][:5]
+    bis, bls = zip(*[eng.sample_batches(rng, *runner.client_data[i]) for i in parts])
+    rhos = data_weights([runner.sizes[i] for i in parts])
+    emd_bar = float(np.mean(emd_many(np.stack([runner.hists[i] for i in parts]))))
+    g = runner.server.params
+    aug = tree_map(lambda x: 0.5 * x, g)
+    outs = [_flat(eng.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=kb)[0])
+            for kb in (8, 8, 16)]
+    d_repeat = float((outs[0] - outs[1]).abs().max())
+    d_bucket = float((outs[0] - outs[2]).abs().max())
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        det = [_flat(eng.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=kb)[0])
+               for kb in (8, 8, 16)]
+    d_det_repeat = float((det[0] - det[1]).abs().max())
+    d_det_bucket = float((det[0] - det[2]).abs().max())
+    print(f"genfv bucket invariance (K=5, full width): bucket 8 vs 16 max |delta| "
+          f"{d_bucket:.3e}, bucket 8 twice {d_repeat:.3e} (tol {BUCKET_TOL}); with "
+          f"cudnn.deterministic: 8 vs 16 {d_det_bucket:.3e}, 8 twice {d_det_repeat:.3e} "
+          f"(bitwise)")
+    require(all(bool(torch.isfinite(o).all()) for o in outs + det), "non-finite aggregate")
+    require(max(d_bucket, d_repeat) <= BUCKET_TOL,
+            f"bucket invariance: {max(d_bucket, d_repeat):.3e} > {BUCKET_TOL}")
+    require(d_det_bucket == 0.0 and d_det_repeat == 0.0,
+            "deterministic cuDNN: the aggregate is not bitwise across buckets")
+
+
+def genfv(device):
+    runner, rounds = genfv_full_width(device)
+    genfv_planner_contract(runner, rounds)
+    genfv_bucket_invariance(runner)
+    del runner
+    torch.cuda.empty_cache()
+    genfv_card_matches_cpu(device)
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timing
+# Phase 7: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, device, runs=20, warmup=3):
     """Median of `runs` CUDA-event timings of the device's work; L2 is
@@ -644,6 +840,8 @@ def main():
     torch.cuda.empty_cache()
     batching_equals_isolated(dataclasses.replace(get_config(ARCH), num_layers=3), device)
     card_matches_cpu(device)
+    torch.cuda.empty_cache()
+    genfv(device)
     torch.cuda.empty_cache()
     entries = time_kernels(device, errors, rec["launches"])
     print(json.dumps({"kernels": entries}))

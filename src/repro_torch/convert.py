@@ -1,5 +1,7 @@
 """Carry the JAX package's parameters into the port.
 
+`from_jax_cnn_params(tree)` carries the GenFV CNN (see its docstring).
+
 `from_jax_params(cfg, tree)` takes the JAX parameter pytree with numpy
 leaves (`jax.tree.map(np.asarray, params)`) and returns the port's
 parameter dict. Leaf map, JAX path -> port path:
@@ -22,14 +24,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.api import resolve_device
-
-
-def _tree_map(fn, node):
-    if isinstance(node, dict):
-        return {k: _tree_map(fn, v) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return [_tree_map(fn, v) for v in node]
-    return fn(node)
+from repro_torch.tree import tree_map
 
 
 def from_jax_params(cfg, tree, *, device="cuda"):
@@ -52,12 +47,29 @@ def from_jax_params(cfg, tree, *, device="cuda"):
     plen = len(cfg.pattern)
     groups = tree.get("groups", [])
     G = cfg.num_layers // plen if groups else 0
-    layers = [_tree_map(lambda a, g=g: leaf(np.asarray(a)[g]), groups[i])
+    layers = [tree_map(lambda a, g=g: leaf(np.asarray(a)[g]), groups[i])
               for g in range(G) for i in range(plen)]
-    layers += [_tree_map(leaf, p) for p in tree["rem"]]
+    layers += [tree_map(leaf, p) for p in tree["rem"]]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, {cfg.name} has "
                          f"{cfg.num_layers}")
     return {"embed": leaf(tree["embed"]),
-            "final_norm": _tree_map(leaf, tree["final_norm"]),
+            "final_norm": tree_map(leaf, tree["final_norm"]),
             "layers": layers}
+
+
+def from_jax_cnn_params(tree, *, device="cuda"):
+    """JAX GenFV CNN parameter pytree (numpy leaves,
+    `jax.tree.map(np.asarray, params)` of `repro.models.cnn.init_cnn`) ->
+    the port's tree of the same names on `device` (`models/cnn.py`).
+    Convolution weights go from HWIO to OIHW; GroupNorm scale and bias and
+    the head's `w` [C, classes] and `b` keep their layout."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return tree_map(leaf, tree)

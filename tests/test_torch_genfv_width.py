@@ -1,0 +1,170 @@
+"""The port's GenFV device layer against the JAX package at full width
+(`width_mult=1.0`, the paper's ResNet-18, 64-128-256-512) on the CPU, on
+parameters made by the JAX package and carried over with
+`convert.from_jax_cnn_params`: the loss and its gradient, h local SGD
+steps at the runner's batch and learning rate, and one fleet step with
+eq. 4. The other GenFV tests run at width 0.25; these hold the widths the
+card runs.
+
+At full width the runner's learning rate (5e-2) makes the local loss rise
+from step to step in the JAX package as in the port;
+`test_local_sgd_full_width_matches_jax` pins that.
+"""
+import jax
+import jax.experimental
+
+# The JAX package imports `jax.experimental.enable_x64`, which jax 0.9
+# no longer has; alias it before anything imports `repro`.
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro.configs.genfv_cifar import cnn_config as j_cnn_config  # noqa: E402
+from repro.data.synthetic import make_image_dataset  # noqa: E402
+from repro.fl.client import local_sgd as j_local_sgd  # noqa: E402
+from repro.fl.fleet import FleetEngine as JFleetEngine  # noqa: E402
+from repro.models import cnn as jcnn  # noqa: E402
+from repro_torch.configs.genfv_cifar import cnn_config  # noqa: E402
+from repro_torch.convert import from_jax_cnn_params  # noqa: E402
+from repro_torch.fl.client import (images_to_device, labels_to_device,  # noqa: E402
+                                   local_sgd_steps)
+from repro_torch.fl.fleet import FleetEngine  # noqa: E402
+from repro_torch.fl.rounds import CLIENT_LR  # noqa: E402
+from repro_torch.models import cnn  # noqa: E402
+from repro_torch.tree import FlatSpec  # noqa: E402
+
+CFG_J = j_cnn_config("cifar10", 1.0)
+CFG = cnn_config("cifar10", 1.0)
+CPU = "cpu"
+
+LOGIT_TOL64 = 1e-12     # x max|logit|
+GRAD_TOL64 = 1e-6       # x max|grad|: the cross-entropy stays float32
+GRAD_TOL32 = 1e-3       # relative L2 norm of the whole gradient
+LOSS_RTOL32 = 1e-4      # per-step local losses, float32
+AGG_TOL32 = 5e-4        # params after local SGD / the fleet aggregate, absolute
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The test runner spreads files over worker processes on the same
+    cores; torch's intra-op pool would take every core in each of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _flat_jax(tree):
+    """JAX tree -> flat numpy in the port's layout (convs to OIHW)."""
+    return np.concatenate([
+        (np.asarray(x).transpose(3, 2, 0, 1) if np.ndim(x) == 4 else np.asarray(x)).ravel()
+        for x in jax.tree.leaves(tree)])
+
+
+def _flat(tree):
+    return FlatSpec(tree).flatten(tree).detach().cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def params():
+    pj = jcnn.init_cnn(jax.random.PRNGKey(0), CFG_J)
+    aug = jcnn.init_cnn(jax.random.PRNGKey(1), CFG_J)
+    return (pj, from_jax_cnn_params(jax.tree.map(np.asarray, pj), device=CPU), aug,
+            from_jax_cnn_params(jax.tree.map(np.asarray, aug), device=CPU))
+
+
+def _jax_logits_loss_grad(p, x, y):
+    (loss, logits), g = jax.value_and_grad(
+        lambda pp: jcnn.cnn_loss(pp, CFG_J, {"images": x, "labels": y}), has_aux=True)(p)
+    return np.asarray(logits), float(loss), _flat_jax(g)
+
+
+def _port_logits_loss_grad(pt, x, y, dtype):
+    spec = FlatSpec(pt)
+    flat = spec.flatten(pt).to(dtype)
+    xs = images_to_device(x, CPU, dtype)
+    ys = labels_to_device(y, CPU)
+    g, (loss, logits) = torch.func.grad_and_value(
+        lambda w: cnn.cnn_loss(spec.unflatten(w), CFG, xs, ys), has_aux=True)(flat)
+    return logits.detach().numpy(), float(loss), g.numpy()
+
+
+def test_cnn_full_width_matches_jax(params):
+    """Logits, loss and the whole gradient at width 1.0, 8 images: float64
+    to LOGIT_TOL64 / GRAD_TOL64 of the largest entry; in float32 the loss to
+    1e-5 relative, and the port's gradient within GRAD_TOL32 (relative L2)
+    of the float64 gradient. The JAX package's own float32 gradient lies
+    about 2e-3 from it on these images (GroupNorm's cancellation), so the
+    two float32 gradients are each held to the float64 one, not to each
+    other."""
+    pj, pt, _, _ = params
+    x, y = make_image_dataset("cifar10", 8, seed=7)
+    n = FlatSpec(pt).numel
+    assert n == sum(np.size(a) for a in jax.tree.leaves(pj)) == 11_173_962
+    with jax.enable_x64(True):
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), pj)
+        want_logits, want_loss, want = _jax_logits_loss_grad(
+            p64, jnp.asarray(x, jnp.float64), jnp.asarray(y))
+    logits, loss, grad = _port_logits_loss_grad(pt, x, y, torch.float64)
+    err = np.abs(logits - want_logits).max()
+    assert err <= LOGIT_TOL64 * np.abs(want_logits).max(), \
+        f"float64 logits {err:.3e} (tol {LOGIT_TOL64} x max)"
+    assert abs(loss - want_loss) <= 1e-6, (loss, want_loss)
+    err = np.abs(grad - want).max()
+    assert err <= GRAD_TOL64 * np.abs(want).max(), f"float64 grads {err:.3e} (tol {GRAD_TOL64} x max)"
+    _, want_loss, grad_j = _jax_logits_loss_grad(pj, jnp.asarray(x), jnp.asarray(y))
+    _, loss, grad = _port_logits_loss_grad(pt, x, y, torch.float32)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), (loss, want_loss)
+    rel = np.linalg.norm(grad - want) / np.linalg.norm(want)
+    rel_j = np.linalg.norm(grad_j - want) / np.linalg.norm(want)
+    assert rel <= GRAD_TOL32, \
+        f"float32 gradient {rel:.3e} from the float64 one > {GRAD_TOL32} (JAX's: {rel_j:.3e})"
+
+
+def test_local_sgd_full_width_matches_jax(params):
+    """One vehicle's round at the runner's shape (h = 4 steps of 64 images,
+    lr 5e-2), float32: per-step losses within LOSS_RTOL32, parameters within
+    AGG_TOL32. In both packages the loss rises from step to step, which is
+    why a full-width round's loss starts far above ln 10."""
+    pj, pt, _, _ = params
+    h, batch = 4, 64
+    x, y = make_image_dataset("cifar10", h * batch, seed=3)
+    bi, bl = x.reshape(h, batch, 32, 32, 3), y.reshape(h, batch)
+    pa, la = j_local_sgd(pj, CFG_J, jnp.asarray(bi), jnp.asarray(bl), h, CLIENT_LR, 0.0)
+    want = np.asarray(la)
+    pb, lb = local_sgd_steps(pt, CFG, images_to_device(bi, CPU), labels_to_device(bl, CPU),
+                             h, CLIENT_LR, 0.0)
+    got = lb.detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL32,
+                               err_msg=f"per-step losses within {LOSS_RTOL32} relative")
+    err = np.abs(_flat(pb) - _flat_jax(pa)).max()
+    assert err <= AGG_TOL32, f"params after {h} steps: {err:.3e} > {AGG_TOL32}"
+    assert want[0] < 3.0 and np.all(np.diff(want) > 0) and np.all(np.diff(got) > 0), \
+        f"losses by step: JAX {want}, port {got}"
+
+
+def test_fleet_run_full_width_matches_jax(params):
+    """One vmapped fleet step with eq. 4 at width 1.0 (K = 3 at bucket 4,
+    h = 2 steps of 16 images), float32: the aggregate within AGG_TOL32
+    absolute, per-vehicle mean losses within 1e-3 relative."""
+    pj, pt, aug_j, aug_t = params
+    k = 3
+    rng = np.random.default_rng(k)
+    eng = FleetEngine(CFG, 2, 16, CLIENT_LR)
+    data = [make_image_dataset("cifar10", 40, seed=20 + v) for v in range(k)]
+    bis, bls = zip(*[eng.sample_batches(rng, d[0], d[1]) for d in data])
+    rhos = rng.dirichlet(np.ones(k))
+    emd_bar = float(np.mean(rng.uniform(0.2, 1.6, size=k)))
+    je = JFleetEngine(CFG_J, eng.h, eng.batch_size, CLIENT_LR)
+    want, want_losses = je.run(jax.tree.map(jnp.asarray, pj), list(bis), list(bls), rhos,
+                               emd_bar, aug_j)
+    got, losses = eng.run(pt, list(bis), list(bls), rhos, emd_bar, aug_t)
+    err = np.abs(_flat(got) - _flat_jax(want)).max()
+    assert err <= AGG_TOL32, f"K={k} full width: aggregate {err:.3e} > {AGG_TOL32}"
+    np.testing.assert_allclose(losses, np.asarray(want_losses), rtol=1e-3,
+                               err_msg="per-vehicle mean losses within 1e-3 relative")
+    assert np.isfinite(_flat(got)).all()
