@@ -19,6 +19,14 @@ Phases, each fatal on failure:
      the card's float64 planner against the numpy planner on those fleets;
      the reduced run on the card against the same run on the CPU; and one
      fleet step at two buckets (this path runs no hand-written kernel);
+     then the round loop under faults at full width, traced by the port's
+     Obs: poisoned updates rejected inside the fleet step (the finite mask
+     equal to the injected poison), late updates buffered and merged, a
+     forced departure; a poisoned fleet step against the clean fleet
+     without that vehicle; the always-guarded eq. 4 against the unguarded
+     one on a clean fleet; a sequential round against the vectorized one;
+     golden resume and tracer neutrality bitwise under deterministic cuDNN;
+     the reduced faulted run on the card against the CPU;
   7. time each kernel at the serving shapes beside its bound, its plain
      version and, for attention, PyTorch's scaled_dot_product_attention.
 
@@ -46,14 +54,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.emd import data_weights, emd_many  # noqa: E402
+from repro_torch.core.emd import (add_weighted, aggregate_stacked_guarded,  # noqa: E402
+                                  data_weights, emd_many)
+from repro_torch.fl import fleet as fleet_mod  # noqa: E402
 from repro_torch.core.planner import bucket_size  # noqa: E402
 from repro_torch.core.two_scale import plan_round  # noqa: E402
+from repro_torch.fl.faults import FaultSpec  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      rglru_scan_ref)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.tree import FlatSpec, tree_leaves, tree_map  # noqa: E402
 
@@ -669,30 +681,44 @@ def genfv_planner_contract(runner, rounds):
               f"{ref.bcd_iters}; numpy planner {np_ms:.2f} ms on the host")
 
 
-def genfv_card_matches_cpu(device):
+LEDGER_INTS = ("selected", "b_gen", "dropped", "late", "rejected", "stale_merged",
+               "stale_dropped", "bcd_iters")
+
+
+def genfv_card_matches_cpu(device, run_kw=GENFV_REDUCED, faults=None, what="reduced"):
     """The reduced run on the card and on the CPU from the same weights;
     each round starts both from the CPU's round-start parameters."""
     cpu = torch.device("cpu")
-    runners = {d: GenFVRunner(RunConfig(**GENFV_REDUCED), device=d) for d in (cpu, device)}
+    runners = {d: GenFVRunner(RunConfig(**run_kw), faults=faults, device=d) for d in (cpu, device)}
     worst_p = worst_l = 0.0
-    for t in range(GENFV_REDUCED["rounds"]):
+    ledger = []
+    for t in range(run_kw["rounds"]):
         runners[device].server.params = tree_map(lambda x: x.to(device),
                                                  runners[cpu].server.params)
         logs = {d: r.run_round(t) for d, r in runners.items()}
-        for f in ("selected", "b_gen", "dropped", "bcd_iters"):
+        for f in LEDGER_INTS:
             require(getattr(logs[cpu], f) == getattr(logs[device], f),
-                    f"card vs CPU round {t}: {f} {getattr(logs[device], f)} != "
+                    f"card vs CPU ({what}) round {t}: {f} {getattr(logs[device], f)} != "
                     f"{getattr(logs[cpu], f)}")
-        dl = abs(logs[device].loss - logs[cpu].loss) / abs(logs[cpu].loss)
+        require(logs[cpu].t_round == logs[device].t_round,
+                f"card vs CPU ({what}) round {t}: t_round differs")
+        dl = abs(logs[device].loss - logs[cpu].loss) / max(abs(logs[cpu].loss), 1e-30)
         dp = float((_flat(runners[device].server.params).cpu()
                     - _flat(runners[cpu].server.params)).abs().max())
         require(dl <= GENFV_LOSS_RTOL and dp <= GENFV_PARAM_TOL,
-                f"card vs CPU round {t}: loss {dl:.3e} (rtol {GENFV_LOSS_RTOL}), "
+                f"card vs CPU ({what}) round {t}: loss {dl:.3e} (rtol {GENFV_LOSS_RTOL}), "
                 f"params {dp:.3e} (tol {GENFV_PARAM_TOL})")
         worst_p, worst_l = max(worst_p, dp), max(worst_l, dl)
-    print(f"genfv card == CPU (reduced, {GENFV_REDUCED['rounds']} rounds): selected, b_gen, "
-          f"dropped, bcd_iters equal; loss within {worst_l:.3e} relative (tol "
-          f"{GENFV_LOSS_RTOL}), params within {worst_p:.3e} (tol {GENFV_PARAM_TOL})")
+        ledger.append(tuple(getattr(logs[device], f) for f in LEDGER_INTS))
+    if faults is not None:
+        totals = {f: sum(row[LEDGER_INTS.index(f)] for row in ledger)
+                  for f in ("late", "rejected", "stale_merged")}
+        require(all(totals.values()),
+                f"card vs CPU ({what}): the run missed a fault branch {totals}")
+    print(f"genfv card == CPU ({what}, {run_kw['rounds']} rounds): "
+          f"{', '.join(LEDGER_INTS)} and t_round equal {ledger}; loss within "
+          f"{worst_l:.3e} relative (tol {GENFV_LOSS_RTOL}), params within {worst_p:.3e} "
+          f"(tol {GENFV_PARAM_TOL})")
 
 
 def genfv_bucket_invariance(runner):
@@ -728,6 +754,323 @@ def genfv_bucket_invariance(runner):
             "deterministic cuDNN: the aggregate is not bitwise across buckets")
 
 
+# The faulted rounds: mixed_stress's probabilities from round 0 with seed
+# 23, picked on the CPU (fault draws, selections and the ledger do not
+# depend on the device) so that two full-width rounds see a poisoned update
+# rejected inside the fleet step in both rounds, late updates buffered in
+# round 0 and merged in round 1 (inside a guarded fleet step), and a forced
+# departure in round 1. Full width on CIFAR-10's training size; 1,000 test
+# images instead of 10,000 and 2 rounds, to keep the phase short.
+GENFV_FAULT_SPEC = FaultSpec(seed=23, straggler_prob=0.2, straggler_slowdown=3.0,
+                             outage_prob=0.2, departure_prob=0.1, poison_prob=0.1)
+GENFV_FAULT_RUN = dict(width_mult=1.0, train_size=50_000, test_size=1_000, rounds=2)
+# The reduced faulted run (card against CPU): 3 rounds reach a late update,
+# its merge and a rejection (genfv_card_matches_cpu requires all three).
+GENFV_FAULT_REDUCED = dict(GENFV_REDUCED, rounds=3)
+CKPT_DIR = ROOT / "build" / "genfv_ckpt"
+
+
+class GuardRecorder:
+    """Stands in for a runner's FleetEngine and records each fleet step:
+    which batches carried the injected poison (all NaN) and the finite mask
+    it returned."""
+
+    def __init__(self, engine):
+        self.engine, self.steps = engine, []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def run(self, global_params, imgs_list, *args, **kw):
+        out = self.engine.run(global_params, imgs_list, *args, **kw)
+        self.steps.append({"poisoned": [bool(np.isnan(b).all()) for b in imgs_list],
+                           "finite": out[2].tolist()})
+        return out
+
+
+def _round_spans(obs, t):
+    """The tracer's spans of round t: name -> (ms, tags)."""
+    return {e["name"]: (1e3 * e["dur"], e["tags"]) for e in obs.events
+            if e["ph"] == "X" and e["tags"].get("round") == t}
+
+
+def _timed_round(runner, t, device):
+    sync(device)
+    t0 = time.perf_counter()
+    log = runner.run_round(t)
+    sync(device)
+    return log, 1e3 * (time.perf_counter() - t0)
+
+
+def genfv_faulted(device):
+    """GENFV_FAULT_RUN under GENFV_FAULT_SPEC with cuDNN's default
+    algorithms, traced by the port's Obs; every fleet step's finite mask
+    must equal the injected poison."""
+    obs = Obs(meta={"phase": "genfv_faults"})
+    t0 = time.perf_counter()
+    runner = GenFVRunner(RunConfig(**GENFV_FAULT_RUN), faults=GENFV_FAULT_SPEC, obs=obs,
+                         device=device)
+    rec = GuardRecorder(runner.engine)
+    runner.engine = rec
+    print(f"genfv faults: width {runner.run.width_mult}, cifar10 {GENFV_FAULT_RUN['train_size']}/"
+          f"{GENFV_FAULT_RUN['test_size']} images, {GENFV_FAULT_RUN['rounds']} rounds, "
+          f"{GENFV_FAULT_SPEC}; runner built in {time.perf_counter() - t0:.1f} s")
+    rounds, departed = [], 0
+    for t in range(GENFV_FAULT_RUN["rounds"]):
+        n_steps = len(rec.steps)
+        log, round_ms = _timed_round(runner, t, device)
+        spans = _round_spans(obs, t)
+        k = spans["round/local_sgd"][1]["selected"]
+        departed += int(runner.faults.draw(t, k).departed.sum())
+        steps = rec.steps[n_steps:]
+        r = {f: getattr(log, f) for f in ("round", "selected", "dropped", "late", "rejected",
+                                          "stale_merged", "stale_dropped", "b_gen", "t_bar",
+                                          "t_round", "bcd_iters", "loss", "accuracy")}
+        r.update({"bucket": bucket_size(log.selected) if log.selected else 0,
+                  "poisoned": bool(steps and any(steps[0]["poisoned"])),
+                  "finite": steps[0]["finite"] if steps else None,
+                  "round_ms": round_ms})
+        for name in ("plan", "generate", "local_sgd", "aggregate", "world_step", "eval"):
+            r[f"{name}_ms"] = spans[f"round/{name}"][0]
+        rounds.append(r)
+        print(f"genfv faults round {t}: selected {log.selected} (bucket {r['bucket']}), "
+              f"dropped {log.dropped}, late {log.late}, rejected {log.rejected}, stale merged "
+              f"{log.stale_merged}, poison in the fleet step {r['poisoned']} finite "
+              f"{r['finite']}, t_bar "
+              f"{log.t_bar:.4f} s, t_round {log.t_round:.4f} s, loss {log.loss:.4f}, accuracy "
+              f"{log.accuracy:.4f}; ms: plan {r['plan_ms']:.2f}, generate + omega_a "
+              f"{r['generate_ms']:.2f}, late training {r['local_sgd_ms']:.2f}, fleet step + "
+              f"merge {r['aggregate_ms']:.2f}, eval {r['eval_ms']:.2f}, round {round_ms:.2f}")
+        require(math.isfinite(log.loss) and 0.0 <= log.accuracy <= 1.0,
+                f"genfv faults round {t}: loss {log.loss}, accuracy {log.accuracy}")
+    require(any(any(st["poisoned"]) for st in rec.steps),
+            "genfv faults: no fleet step carried a poisoned update")
+    for st in rec.steps:
+        require(st["finite"] == [not p for p in st["poisoned"]],
+                f"genfv faults: finite mask {st['finite']} != injected poison {st['poisoned']}")
+    totals = {f: sum(r[f] for r in rounds) for f in ("rejected", "late", "stale_merged")}
+    require(all(totals.values()) and departed > 0,
+            f"genfv faults: the run missed a fault branch {totals}, forced departures {departed}")
+    require(all(x.device == device for x in tree_leaves(runner.server.params)),
+            "the runner's parameters left the card")
+    require(bool(torch.isfinite(_flat(runner.server.params)).all()), "non-finite global parameters")
+    require(obs.open_spans == 0, "open spans after the run")
+    print(f"genfv faults: {len(rec.steps)} fleet steps, "
+          f"{sum(any(st['poisoned']) for st in rec.steps)} with poison, finite == injected "
+          f"poison in each; "
+          f"rejected {totals['rejected']}, late {totals['late']}, merged "
+          f"{totals['stale_merged']}, forced departures {departed}")
+    return runner, rec.engine, rounds
+
+
+def _unguarded_eq4(stacked, weights, aug, aug_weight, fallback):
+    """Eq. 4 without the finiteness guard, the chain the fleet step ran
+    before the guard was always on: fed = w0*s0; fed = fed + wi*si; ...
+    in float32. Returns an all-true finite mask, as a clean fleet gives."""
+    s32 = stacked.float()
+    ws = [float(np.float32(w)) for w in weights]
+    fed = ws[0] * s32[0]
+    for i in range(1, len(ws)):
+        fed = fed + ws[i] * s32[i]
+    out = fed + float(np.float32(aug_weight)) * aug.float()
+    return out.to(stacked.dtype), torch.ones(len(ws), dtype=torch.bool, device=stacked.device)
+
+
+def _in_turns(calls, device):
+    """Each call of `calls` (name -> fn) twice, in turns A, B, B, A, timed
+    on the host's clock around a device sync: name -> ([ms, ms], last out)."""
+    names = list(calls)
+    ms, outs = {n: [] for n in names}, {}
+    for name in names + names[::-1]:
+        sync(device)
+        t0 = time.perf_counter()
+        outs[name] = calls[name]()
+        sync(device)
+        ms[name].append(1e3 * (time.perf_counter() - t0))
+    return ms, outs
+
+
+def genfv_poisoned_step(runner, engine, device):
+    """Full-width fleet steps at K=5, bucket 8: (1) vehicle 2's batches
+    poisoned, against the step of the other four with their weights
+    renormalised (within BUCKET_TOL, finite mask exact); (2) the clean
+    five, always guarded, against the same step with the unguarded eq. 4
+    (within BUCKET_TOL: cuDNN's default wgrad differs run to run); (3) on
+    the clean step's stacked [8, P] buffer, the guarded eq. 4 against the
+    unguarded one, bitwise, and each timed alone. Each pair is timed in
+    turns. Also times the stale merge of two full-width updates."""
+    rng = np.random.default_rng(1)
+    parts = [i for i, (_, y) in enumerate(runner.client_data) if len(y) >= 2][:5]
+    bis, bls = zip(*[engine.sample_batches(rng, *runner.client_data[i]) for i in parts])
+    rhos = data_weights([runner.sizes[i] for i in parts])
+    emd_bar = float(np.mean(emd_many(np.stack([runner.hists[i] for i in parts]))))
+    g = runner.server.params
+    aug = tree_map(lambda x: 0.5 * x, g)
+    bad = 2
+    keep = [i for i in range(len(parts)) if i != bad]
+    poisoned = list(bis)
+    poisoned[bad] = np.full_like(bis[bad], np.nan)
+    ms, outs = _in_turns({
+        "poisoned": lambda: engine.run(g, poisoned, list(bls), rhos, emd_bar, aug, bucket=8),
+        "clean4": lambda: engine.run(g, [bis[i] for i in keep], [bls[i] for i in keep],
+                                     rhos[keep] / rhos[keep].sum(), emd_bar, aug, bucket=8)},
+        device)
+    finite = outs["poisoned"][2].tolist()
+    require(finite == [i != bad for i in range(len(parts))],
+            f"poisoned fleet step: finite {finite}, poisoned vehicle {bad}")
+    d = float((_flat(outs["poisoned"][0]) - _flat(outs["clean4"][0])).abs().max())
+    require(math.isfinite(d) and d <= BUCKET_TOL,
+            f"poisoned fleet step: aggregate vs the renormalised clean one {d:.3e} > "
+            f"{BUCKET_TOL}")
+
+    captured = []
+
+    def unguarded_step():
+        def eq4(stacked, *args, **kw):
+            captured[:] = [(stacked, args, kw)]
+            return _unguarded_eq4(stacked, *args, **kw)
+        fleet_mod.aggregate_stacked_guarded = eq4
+        try:
+            return engine.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=8)
+        finally:
+            fleet_mod.aggregate_stacked_guarded = aggregate_stacked_guarded
+    ms_clean, outs_clean = _in_turns({
+        "guarded": lambda: engine.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=8),
+        "unguarded": unguarded_step}, device)
+    require(outs_clean["guarded"][2].all(), "clean fleet step: a vehicle was rejected")
+    d_clean = float((_flat(outs_clean["guarded"][0])
+                     - _flat(outs_clean["unguarded"][0])).abs().max())
+    require(d_clean <= BUCKET_TOL,
+            f"clean fleet step: guarded vs unguarded eq. 4 {d_clean:.3e} > {BUCKET_TOL}")
+    stacked, args, kw = captured[0]
+    eq4 = {"guarded": lambda: aggregate_stacked_guarded(stacked, *args, **kw),
+           "unguarded": lambda: _unguarded_eq4(stacked, *args, **kw)}
+    require(torch.equal(eq4["guarded"]()[0], eq4["unguarded"]()[0]),
+            "eq. 4 on the clean stacked buffer: the guard changed a bit")
+    eq4_ms = {name: time_ms(fn, device) for name, fn in eq4.items()}
+    del captured, stacked
+    stale = [tree_map(lambda x: x + 1e-3, g), tree_map(lambda x: x - 1e-3, g)]
+    merge_ms = time_ms(lambda: add_weighted(g, stale, [0.125, 0.0625]), device)
+    out = {"poisoned_step_ms": ms["poisoned"], "clean4_step_ms": ms["clean4"],
+           "poisoned_vs_clean4_max_abs": d, "guarded_step_ms": ms_clean["guarded"],
+           "unguarded_step_ms": ms_clean["unguarded"], "guarded_vs_unguarded_max_abs": d_clean,
+           "eq4_guarded_ms": eq4_ms["guarded"], "eq4_unguarded_ms": eq4_ms["unguarded"],
+           "stale_merge_ms": merge_ms}
+    print(f"genfv poisoned fleet step (K=5, bucket 8, vehicle {bad} poisoned): finite {finite}; "
+          f"aggregate vs the clean four renormalised max |delta| {d:.3e} (tol {BUCKET_TOL}); "
+          f"poisoned {ms['poisoned'][0]:.2f}/{ms['poisoned'][1]:.2f} ms, clean four "
+          f"{ms['clean4'][0]:.2f}/{ms['clean4'][1]:.2f} ms (in turns)")
+    print(f"genfv clean fleet step (K=5, bucket 8): guarded vs unguarded eq. 4 max |delta| "
+          f"{d_clean:.3e} (tol {BUCKET_TOL}); step guarded {ms_clean['guarded'][0]:.2f}/"
+          f"{ms_clean['guarded'][1]:.2f} ms, unguarded {ms_clean['unguarded'][0]:.2f}/"
+          f"{ms_clean['unguarded'][1]:.2f} ms (in turns); eq. 4 alone on its [8, P] buffer "
+          f"guarded {eq4_ms['guarded']:.4f} ms, unguarded {eq4_ms['unguarded']:.4f} ms, "
+          f"bitwise equal; stale merge of 2 full-width updates {merge_ms:.4f} ms")
+    return out
+
+
+def genfv_sequential_round(vec_rounds, device):
+    """Round 0 of the faulted run on the sequential path (vectorized=False)
+    at full width: the integer ledger equals the vectorized run's."""
+    runner = GenFVRunner(RunConfig(vectorized=False, **GENFV_FAULT_RUN), faults=GENFV_FAULT_SPEC,
+                         device=device)
+    log, ms = _timed_round(runner, 0, device)
+    for f in LEDGER_INTS:
+        require(getattr(log, f) == vec_rounds[0][f],
+                f"sequential round 0: {f} {getattr(log, f)} != vectorized {vec_rounds[0][f]}")
+    require(math.isfinite(log.loss), f"sequential round 0: loss {log.loss}")
+    print(f"genfv sequential round 0 (width {GENFV_FAULT_RUN['width_mult']}): "
+          f"{', '.join(LEDGER_INTS)} equal the vectorized "
+          f"run's; loss {log.loss:.4f} (vectorized {vec_rounds[0]['loss']:.4f}), round {ms:.2f} ms")
+    return ms
+
+
+def genfv_resume_and_tracer(device):
+    """Under deterministic cuDNN: an untraced run that saves a checkpoint
+    after round 0 (late updates in its stale buffer) and a traced run, held
+    bitwise equal; then round 1 again from that checkpoint, four times in
+    turns (a fresh untraced runner, the traced runner twice, the untraced
+    one again), each held bitwise to the uninterrupted run. The turns time
+    the same warm round with and without the tracer."""
+    run = RunConfig(**GENFV_FAULT_RUN)
+    rounds = GENFV_FAULT_RUN["rounds"]
+    path = str(CKPT_DIR / "runner.npz")
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        plain = GenFVRunner(run, faults=GENFV_FAULT_SPEC, device=device)
+        plain.run_round(0)
+        n_stale = len(plain.stale)
+        sync(device)
+        t0 = time.perf_counter()
+        plain.save_checkpoint(path)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        for t in range(1, rounds):
+            plain.run_round(t)
+        want_logs, want = list(plain.logs), _flat(plain.server.params).clone()
+        traced = GenFVRunner(run, faults=GENFV_FAULT_SPEC, obs=Obs(), device=device)
+        for t in range(rounds):
+            traced.run_round(t)
+        require(traced.logs == want_logs and torch.equal(_flat(traced.server.params), want),
+                "deterministic cuDNN: the traced run differs from the untraced run")
+        resumed = GenFVRunner(run, faults=GENFV_FAULT_SPEC, device=device)
+        ms = {"untraced": [], "traced": []}
+        load_ms = []
+        for name in ("untraced", "traced", "traced", "untraced"):
+            r = resumed if name == "untraced" else traced
+            sync(device)
+            t0 = time.perf_counter()
+            nxt = r.load_checkpoint(path)
+            sync(device)
+            load_ms.append(1e3 * (time.perf_counter() - t0))
+            require(nxt == 1 and len(r.stale) == n_stale > 0,
+                    f"resume: next round {nxt}, stale entries {len(r.stale)} vs {n_stale}")
+            require(all(x.device == device for e in r.stale.entries
+                        for x in tree_leaves(e.params)), "resume: stale entries off the card")
+            for t in range(1, rounds):
+                ms[name].append(_timed_round(r, t, device)[1])
+            require(r.logs == want_logs and torch.equal(_flat(r.server.params), want),
+                    f"deterministic cuDNN: the resumed run ({name}) differs from the "
+                    f"uninterrupted run")
+            require(all(x.device == device for x in tree_leaves(r.server.params)),
+                    "resume: parameters off the card")
+    size_mb = Path(path).stat().st_size / 1e6
+    Path(path).unlink()
+    out = {"traced_round_ms": ms["traced"], "untraced_round_ms": ms["untraced"],
+           "tracer_overhead_ms_per_round": statistics.mean(ms["traced"])
+           - statistics.mean(ms["untraced"]),
+           "checkpoint_save_ms": save_ms, "checkpoint_load_ms": load_ms,
+           "checkpoint_mb": size_mb, "stale_entries": n_stale}
+    print(f"genfv deterministic cuDNN: traced == untraced, resumed == uninterrupted 4 times "
+          f"(every RoundLog field and the parameters, bitwise); checkpoint after round 0 with "
+          f"{n_stale} stale entries, {size_mb:.1f} MB, save {save_ms:.2f} ms, load "
+          f"{', '.join(f'{x:.2f}' for x in load_ms)} ms; round 1 from the checkpoint in turns: "
+          f"untraced {ms['untraced'][0]:.2f}/{ms['untraced'][1]:.2f} ms, traced "
+          f"{ms['traced'][0]:.2f}/{ms['traced'][1]:.2f} ms")
+    return out
+
+
+def genfv_faults(device):
+    t_start = time.perf_counter()
+    ops.flash_attention.launches = 0
+    ops.rglru_scan.launches = 0
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    runner, engine, rounds = genfv_faulted(device)
+    step = genfv_poisoned_step(runner, engine, device)
+    del runner, engine
+    torch.cuda.empty_cache()
+    seq_ms = genfv_sequential_round(rounds, device)
+    det = genfv_resume_and_tracer(device)
+    torch.cuda.empty_cache()
+    genfv_card_matches_cpu(device, GENFV_FAULT_REDUCED, GENFV_FAULT_SPEC, what="reduced, faulted")
+    require(ops.flash_attention.launches == 0 and ops.rglru_scan.launches == 0,
+            "the faulted GenFV path launched a serving kernel")
+    phase_s = time.perf_counter() - t_start
+    print(f"genfv faults: phase {phase_s:.1f} s; hand-written kernel launches 0")
+    print(json.dumps({"genfv_fault_rounds": rounds,
+                      "genfv_faults": {**step, **det, "sequential_round_ms": seq_ms,
+                                       "phase_s": phase_s}}))
+
+
 def genfv(device):
     runner, rounds = genfv_full_width(device)
     genfv_planner_contract(runner, rounds)
@@ -735,6 +1078,7 @@ def genfv(device):
     del runner
     torch.cuda.empty_cache()
     genfv_card_matches_cpu(device)
+    genfv_faults(device)
 
 
 # ---------------------------------------------------------------------------

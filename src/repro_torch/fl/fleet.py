@@ -5,8 +5,15 @@ All K selected vehicles run their h local-SGD steps (with the FedProx
 proximal term when asked) as one `torch.func.vmap` over a leading client
 axis, every vehicle starting from the shared global model, and the eq. (4)
 aggregation follows over the stacked flat parameter buffers [K, P]
-(core/emd.py::aggregate_stacked, a fixed-order chain). Under vmap each
-convolution runs once for all K vehicles, as a grouped convolution.
+(core/emd.py::aggregate_stacked_guarded, a fixed-order chain). Under vmap
+each convolution runs once for all K vehicles, as a grouped convolution.
+
+The aggregation always runs finiteness-guarded: it rejects the rows of
+poisoned updates (fl/faults.py) and falls back to the round-start global
+when every row is rejected. On finite rows the guard changes no bit, so a
+clean fleet gets the unguarded eq. 4's result. (The JAX package keeps an
+unguarded program for clean fleets because the guard compiles to a
+different XLA program; here the fleet SGD runs the same code either way.)
 
 Fleet-size bucketing: K is padded up to the power-of-two bucket >= 4 that
 the planner shares; padded slots train on all-zero batches (finite work)
@@ -22,7 +29,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch.core.emd import aggregate_stacked, kappas
+from repro_torch.core.emd import aggregate_stacked_guarded, kappas
 from repro_torch.core.planner import bucket_size
 from repro_torch.fl.client import (images_to_device, labels_to_device,
                                    sgd_steps_flat)
@@ -50,15 +57,15 @@ class FleetEngine:
     # ----------------------------------------------------------------------
     def run(self, global_params, imgs_list: List, labels_list: List,
             rhos: Sequence[float], emd_bar: float = 0.0, aug_params=None,
-            prox_mu: float = 0.0, bucket: int | None = None
-            ) -> Tuple[dict, np.ndarray]:
+            prox_mu: float = 0.0, bucket: int | None = None) -> Tuple:
         """Train all K vehicles and aggregate, on the device the global
         parameters lie on.
 
         imgs_list/labels_list: per-vehicle stacked batches ([h,B,H,W,C] /
         [h,B], numpy); rhos: data weights over the K vehicles; aug_params:
         the RSU-augmented model (None -> plain weighted FedAvg, kappa2 = 0).
-        Returns (new global parameter tree, mean loss per vehicle [K])."""
+        Returns (new global parameter tree, mean loss per vehicle [K],
+        finite mask [K]: which vehicles' updates eq. 4 kept, numpy bool)."""
         k = len(imgs_list)
         if k == 0:
             raise ValueError("FleetEngine.run needs at least one vehicle")
@@ -92,6 +99,8 @@ class FleetEngine:
                                   self.lr, float(prox_mu))
 
         stacked, losses = vmap(one_vehicle)(imgs, labels)
-        new_flat = aggregate_stacked(stacked, weights, aug, np.float32(k2))
+        new_flat, finite = aggregate_stacked_guarded(
+            stacked, weights, aug, np.float32(k2), fallback=flat)
         return (spec.unflatten(new_flat),
-                losses[:k].cpu().numpy().mean(axis=1))
+                losses[:k].cpu().numpy().mean(axis=1),
+                finite[:k].cpu().numpy())

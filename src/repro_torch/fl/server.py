@@ -1,16 +1,16 @@
-"""RSU-side logic: augmented-model training on AIGC data and the fused
-fleet round with the EMD-weighted aggregation (paper Sec. III-A step 5,
-eq. 4). The counterpart of the JAX package's `fl/server.py`, fault-free
-path: the guarded aggregation, `absorb` and the sequential `aggregate` are
-not ported yet."""
+"""RSU-side logic: augmented-model training on AIGC data, the fused fleet
+round with the EMD-weighted aggregation (paper Sec. III-A step 5, eq. 4),
+the sequential path's aggregation and the merge of one late update. The
+counterpart of the JAX package's `fl/server.py`."""
 from __future__ import annotations
 
 from typing import List, Sequence
 
 import numpy as np
 
-from repro_torch.core.emd import data_weights, kappas, mean_emd
+from repro_torch.core.emd import aggregate, data_weights, kappas, mean_emd
 from repro_torch.fl.client import client_update
+from repro_torch.tree import FlatSpec
 
 
 class GenFVServer:
@@ -46,11 +46,51 @@ class GenFVServer:
     # ---- fused vehicle SGD + aggregation (fleet engine path) --------------
     def fleet_round(self, engine, imgs_list: List, labels_list: List,
                     sizes: Sequence[int], emds: Sequence[float],
-                    aug_model=None, prox_mu: float = 0.0):
-        """Run all selected vehicles' local SGD and the eq. (4) aggregation
-        (fl/fleet.py); `self.params` is rebound to the aggregate."""
+                    aug_model=None, prox_mu: float = 0.0, *,
+                    rhos=None, kappa_emds=None):
+        """Run all selected vehicles' local SGD and the finiteness-guarded
+        eq. (4) aggregation (fl/fleet.py); `self.params` is rebound to the
+        aggregate. Returns (params, (kappa1, kappa2), losses [K],
+        finite [K]).
+
+        `rhos` overrides the data weights (the round loop computes them
+        jointly over fresh and buffered stale participants); `kappa_emds`
+        takes the kappa2 EMD pool apart from `emds` for the same reason."""
+        rhos = data_weights(sizes) if rhos is None \
+            else np.asarray(rhos, np.float64)
+        emd_bar = mean_emd(emds if kappa_emds is None else kappa_emds) \
+            if aug_model is not None else 0.0
+        self.params, losses, finite = engine.run(
+            self.params, imgs_list, labels_list, rhos, emd_bar, aug_model,
+            prox_mu)
+        return self.params, kappas(emd_bar), losses, finite
+
+    # ---- merge of one late update -----------------------------------------
+    def absorb(self, model, weight: float):
+        """Fold one late-arriving update into the global between rounds:
+        params <- (1-w)*params + w*model, in float32, `weight` already
+        carrying the rho * gamma^age staleness discount."""
+        spec = FlatSpec(self.params)
+        p = spec.flatten(self.params)
+        w = float(weight)
+        # each Python weight meets the float32 tensors as a float32 value
+        out = (float(np.float32(1.0 - w)) * p.float()
+               + float(np.float32(w)) * spec.flatten(model).float())
+        self.params = spec.unflatten(out.to(p.dtype))
+        return self.params
+
+    # ---- aggregation (eq. 4), sequential path ------------------------------
+    def aggregate(self, vehicle_models: List, sizes: Sequence[int],
+                  emds: Sequence[float], aug_model=None):
+        if not vehicle_models:
+            if aug_model is not None:
+                self.params = aug_model
+            return self.params, (1.0, 0.0)
         rhos = data_weights(sizes)
-        emd_bar = mean_emd(emds) if aug_model is not None else 0.0
-        self.params, losses = engine.run(self.params, imgs_list, labels_list,
-                                         rhos, emd_bar, aug_model, prox_mu)
-        return self.params, kappas(emd_bar), losses
+        emd_bar = mean_emd(emds)
+        if aug_model is None:
+            # FL-only: plain weighted FedAvg (kappa2 = 0)
+            aug_model = vehicle_models[0]
+            emd_bar = 0.0
+        self.params = aggregate(vehicle_models, rhos, aug_model, emd_bar)
+        return self.params, kappas(emd_bar)

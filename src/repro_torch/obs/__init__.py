@@ -1,3 +1,21 @@
-from repro_torch.obs.trace import NULL_OBS, NullObs, ProgressLogger, log_line
+"""Structured tracing, metrics and trace export of the port (the JAX
+package's `repro.obs`): the span tracer `Obs` and its no-op `NULL_OBS`, the
+`MetricsRegistry`, and the JSONL, Perfetto and metrics-artifact sinks.
+An enabled tracer only reads values the run already computed and waits for
+device work already launched, so traced and untraced runs are bitwise
+identical."""
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.sinks import (METRICS_SCHEMA, host_meta,
+                                   list_metrics_artifacts,
+                                   load_metrics_artifact,
+                                   save_metrics_artifact)
+from repro_torch.obs.trace import (NULL_OBS, NullObs, Obs, ProgressLogger,
+                                   Span, Stopwatch, VirtualClock, log_line,
+                                   stopwatch, sync_devices)
 
-__all__ = ["NULL_OBS", "NullObs", "ProgressLogger", "log_line"]
+__all__ = [
+    "METRICS_SCHEMA", "MetricsRegistry", "NULL_OBS", "NullObs", "Obs",
+    "ProgressLogger", "Span", "Stopwatch", "VirtualClock", "host_meta",
+    "list_metrics_artifacts", "load_metrics_artifact", "log_line",
+    "save_metrics_artifact", "stopwatch", "sync_devices",
+]

@@ -16,6 +16,13 @@ CPU.
 * Whole loop: `train()` with the port's own planner (`"torch"`), from the
   same initial weights; selected, b_gen and bcd_iters equal the reference's
   at seed 0.
+* Under faults (`run_faulted`): the execution half with one of the
+  registered fault schedules, `start_round` moved to 0 so that three rounds
+  show it, on the vectorized or the sequential path, at `FAULT_CFG` (8
+  images a batch, 2 local steps, 6 vehicles: the reference's own fault
+  tests' size, so that ten faulted runs of both packages fit the file's
+  time). Each port round starts from the reference's round-start
+  parameters; the stale updates each package buffers are its own.
 
 The float32 tolerances cover amplification, not a loose port: a round
 trains omega_a for 16 SGD steps at lr 5e-2 on the few generated images
@@ -39,10 +46,14 @@ if not hasattr(jax.experimental, "enable_x64"):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro.configs.base import GenFVConfig as JGenFVConfig  # noqa: E402
+from repro.fl.faults import get_fault as j_get_fault  # noqa: E402
 from repro.fl.rounds import GenFVRunner as JRunner  # noqa: E402
 from repro.fl.rounds import RunConfig as JRunConfig  # noqa: E402
+from repro_torch.configs.base import GenFVConfig  # noqa: E402
 from repro_torch.convert import from_jax_cnn_params  # noqa: E402
 from repro_torch.core.planner import RoundPlan  # noqa: E402
+from repro_torch.fl.faults import FaultSpec  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
 from repro_torch.tree import FlatSpec, tree_leaves  # noqa: E402
 
@@ -52,6 +63,8 @@ INT_FIELDS = ("round", "selected", "b_gen", "dropped", "late", "rejected",
 EXACT_FLOATS = ("t_bar", "kappa2", "emd_bar", "t_round")
 PARAM_TOL = 2e-2      # max |delta| of the global parameters after a round
 LOSS_RTOL = 2e-3      # the round's loss, relative
+FAULT_KW = dict(rounds=3, train_size=400, test_size=64)
+FAULT_CFG = dict(batch_size=8, local_steps=2, num_vehicles=6)
 
 
 def _port_params(tree):
@@ -78,19 +91,39 @@ def run_both(strategy):
     ref = JRunner(JRunConfig(strategy=strategy, **KW))
     port = GenFVRunner(RunConfig(strategy=strategy, **KW), device="cpu")
     init = _port_params(ref.server.params)
-    rounds = []
-    for t in range(KW["rounds"]):
+    rounds = _execution_half(ref, port, KW["rounds"])
+    whole = GenFVRunner(RunConfig(strategy=strategy, **KW), device="cpu")
+    whole.server.params = init
+    return strategy, rounds, whole.train().logs, whole, init
+
+
+def _execution_half(ref, port, rounds):
+    out = []
+    for t in range(rounds):
         pj, pt = ref.begin_round(t), port.begin_round(t)
         assert np.array_equal(pj.alpha, pt.alpha) and np.array_equal(pj.parts, pt.parts)
         plan = ref.plan(pj)
         port.server.params = _port_params(ref.server.params)
         lj = ref.finish_round(pj, plan)
         lt = port.finish_round(pt, _port_plan(plan))
-        rounds.append((lj, lt, _flat_jax(ref.server.params),
-                       FlatSpec(port.server.params).flatten(port.server.params).numpy()))
-    whole = GenFVRunner(RunConfig(strategy=strategy, **KW), device="cpu")
-    whole.server.params = init
-    return strategy, rounds, whole.train().logs, whole, init
+        out.append((lj, lt, _flat_jax(ref.server.params),
+                    FlatSpec(port.server.params).flatten(port.server.params).numpy()))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def run_faulted(name, vectorized):
+    """The execution half under the registered fault schedule `name` with
+    start_round 0. Returns (label, [(reference log, port log, reference
+    params, port params) per round]); cached."""
+    spec = dataclasses.replace(j_get_fault(name), start_round=0)
+    ref = JRunner(JRunConfig(vectorized=vectorized, **FAULT_KW),
+                  fl_cfg=JGenFVConfig(**FAULT_CFG), faults=spec)
+    port = GenFVRunner(RunConfig(vectorized=vectorized, **FAULT_KW),
+                       fl_cfg=GenFVConfig(**FAULT_CFG),
+                       faults=FaultSpec.from_payload(spec.to_payload()), device="cpu")
+    label = f"{name} ({'vectorized' if vectorized else 'sequential'})"
+    return label, _execution_half(ref, port, FAULT_KW["rounds"])
 
 
 def check_execution_half_ledger_equal(runs):

@@ -35,7 +35,7 @@ from repro.fl.fleet import FleetEngine as JFleetEngine  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch.configs.genfv_cifar import cnn_config  # noqa: E402
 from repro_torch.convert import from_jax_cnn_params  # noqa: E402
-from repro_torch.core.emd import aggregate_stacked, kappas  # noqa: E402
+from repro_torch.core.emd import aggregate_stacked_guarded, kappas  # noqa: E402
 from repro_torch.fl.client import (images_to_device, labels_to_device,  # noqa: E402
                                    local_sgd_steps)
 from repro_torch.fl.fleet import FleetEngine  # noqa: E402
@@ -211,8 +211,9 @@ def test_local_sgd_steps_match_jax(params, prox_mu):
 
 
 def test_aggregate_stacked_matches_jax_bitwise():
-    """Eq. 4's ordered chain gives the JAX package's float32 result bit for
-    bit on the CPU, with and without padding slots of weight 0."""
+    """Eq. 4's ordered chain, with its finiteness guard, gives the JAX
+    package's unguarded float32 result bit for bit on the CPU on finite
+    rows, with and without padding slots of weight 0."""
     rng = np.random.default_rng(0)
     s = rng.normal(size=(8, 3000)).astype(np.float32)
     a = rng.normal(size=3000).astype(np.float32)
@@ -222,13 +223,16 @@ def test_aggregate_stacked_matches_jax_bitwise():
         w[:k] = k1 * rng.dirichlet(np.ones(k))
         want = np.asarray(j_aggregate_stacked({"x": jnp.asarray(s)}, jnp.asarray(w),
                                               {"x": jnp.asarray(a)}, jnp.float32(k2))["x"])
-        got = aggregate_stacked(torch.from_numpy(s), w, torch.from_numpy(a), np.float32(k2))
-        assert np.array_equal(got.numpy(), want), k
-        short = aggregate_stacked(torch.from_numpy(s[:k]), w[:k], torch.from_numpy(a),
-                                  np.float32(k2))
+        got, finite = aggregate_stacked_guarded(torch.from_numpy(s), w, torch.from_numpy(a),
+                                                np.float32(k2), torch.from_numpy(a))
+        assert np.array_equal(got.numpy(), want) and finite.all(), k
+        short, _ = aggregate_stacked_guarded(torch.from_numpy(s[:k]), w[:k],
+                                             torch.from_numpy(a), np.float32(k2),
+                                             torch.from_numpy(a))
         assert np.array_equal(short.numpy(), want), f"padding moved the aggregate at K={k}"
     with pytest.raises(ValueError):
-        aggregate_stacked(torch.from_numpy(s), w[:3], torch.from_numpy(a), 0.0)
+        aggregate_stacked_guarded(torch.from_numpy(s), w[:3], torch.from_numpy(a), 0.0,
+                                  torch.from_numpy(a))
 
 
 def _fleet_inputs(k, h=2, batch=8):
@@ -251,19 +255,47 @@ def test_fleet_run_matches_jax(params, k):
     eng, bis, bls, rhos, emd_bar = _fleet_inputs(k)
     je = JFleetEngine(CFG_J, eng.h, eng.batch_size, CLIENT_LR)
     want, want_losses = je.run(jax.tree.map(jnp.asarray, pj), bis, bls, rhos, emd_bar, aug_j)
-    got, losses = eng.run(pt, bis, bls, rhos, emd_bar, aug_t)
+    got, losses, finite = eng.run(pt, bis, bls, rhos, emd_bar, aug_t)
+    assert finite.all() and finite.shape == (k,)
     err = np.abs(_flat(got) - _flat_jax(want)).max()
     assert err <= AGG_TOL32, f"K={k}: aggregate {err:.3e} > {AGG_TOL32}"
     np.testing.assert_allclose(losses, np.asarray(want_losses), rtol=1e-3)
-    plain, _ = eng.run(pt, bis, bls, rhos)          # no omega_a: kappa2 = 0
+    plain, _, _ = eng.run(pt, bis, bls, rhos)       # no omega_a: kappa2 = 0
     want_plain, _ = je.run(jax.tree.map(jnp.asarray, pj), bis, bls, rhos)
     err = np.abs(_flat(plain) - _flat_jax(want_plain)).max()
     assert err <= AGG_TOL32, f"K={k} without omega_a: {err:.3e} > {AGG_TOL32}"
 
 
+def test_fleet_run_rejects_a_poisoned_vehicle(params):
+    """A vehicle whose batches are NaN (a poisoned upload, fl/faults.py)
+    leaves eq. 4: the finite mask marks it alone and equals the JAX
+    engine's guarded step's, whose aggregate the port's is within AGG_TOL32
+    of; and the aggregate is the step of the other four with their weights
+    renormalised, up to the float32 rounding of the renormalisation."""
+    pj, pt, aug_j, aug_t = params
+    eng, bis, bls, rhos, emd_bar = _fleet_inputs(5)
+    bad = 2
+    poisoned = list(bis)
+    poisoned[bad] = np.full_like(bis[bad], np.nan)
+    got, losses, finite = eng.run(pt, poisoned, bls, rhos, emd_bar, aug_t)
+    assert finite.tolist() == [i != bad for i in range(5)]
+    assert np.isfinite(_flat(got)).all()
+    assert np.isnan(losses[bad]) and np.isfinite(np.delete(losses, bad)).all()
+    je = JFleetEngine(CFG_J, eng.h, eng.batch_size, CLIENT_LR)
+    want, _, want_finite = je.run(jax.tree.map(jnp.asarray, pj), poisoned, bls, rhos, emd_bar,
+                                  aug_j, guard=True)
+    assert np.array_equal(np.asarray(want_finite), finite)
+    err = np.abs(_flat(got) - _flat_jax(want)).max()
+    assert err <= AGG_TOL32, f"poisoned fleet step: {err:.3e} > {AGG_TOL32}"
+    keep = [i for i in range(5) if i != bad]
+    clean, _, _ = eng.run(pt, [bis[i] for i in keep], [bls[i] for i in keep],
+                          rhos[keep] / rhos[keep].sum(), emd_bar, aug_t, bucket=8)
+    np.testing.assert_allclose(_flat(got), _flat(clean), rtol=0, atol=1e-6)
+
+
 def test_fleet_run_float64_is_per_vehicle_and_bucket_free(params):
     """In float64 on the CPU the vmapped step equals K separate
-    `local_sgd_steps` calls followed by `aggregate_stacked`, and buckets 4
+    `local_sgd_steps` calls followed by eq. 4, and buckets 4
     and 8 give the same aggregate, bit for bit."""
     _, pt, _, aug_t = params
     eng, bis, bls, rhos, emd_bar = _fleet_inputs(3)
@@ -279,8 +311,9 @@ def test_fleet_run_float64_is_per_vehicle_and_bucket_free(params):
         models.append(FlatSpec(m).flatten(m))
         losses.append(float(lv.mean()))
     k1, k2 = kappas(emd_bar)
-    want = aggregate_stacked(torch.stack(models), np.float32(k1 * rhos),
-                             FlatSpec(a64).flatten(a64), np.float32(k2))
+    want, _ = aggregate_stacked_guarded(torch.stack(models), np.float32(k1 * rhos),
+                                        FlatSpec(a64).flatten(a64), np.float32(k2),
+                                        FlatSpec(p64).flatten(p64))
     assert np.array_equal(_flat(outs[4][0]), want.numpy())
     np.testing.assert_allclose(outs[4][1], losses, rtol=1e-12)
 

@@ -1,5 +1,6 @@
 """The port's GenFV round loop against the JAX package's for the strategy
-genfv (the main path), plus the runner's defaults and unported paths.
+genfv (the main path), plus the runner's defaults and its one unported
+path (the DDPM generator).
 The harness and its tolerances: tests/genfv_rounds_harness.py."""
 import dataclasses
 
@@ -39,7 +40,7 @@ def test_whole_loop_matches(runs):
     harness.check_whole_loop_matches(runs)
 
 
-def test_runner_defaults_and_unported_paths():
+def test_runner_defaults_and_unported_paths(tmp_path):
     kw = harness.KW
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -47,14 +48,15 @@ def test_runner_defaults_and_unported_paths():
     with pytest.raises(ValueError, match="unknown planner"):
         RunConfig(planner="jax")
     assert RunConfig().planner == "torch"
-    for extra, item in ((dict(faults="platoon_dropout"), "item 4"),
-                        (dict(vectorized=False), "item 6"),
-                        (dict(generator="ddpm"), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            GenFVRunner(RunConfig(**kw, **extra), device="cpu")
+    with pytest.raises(ValueError, match="unknown fault schedule"):
+        RunConfig(faults="platoon_dropout")
+    for extra in (dict(faults="platoon_mass_dropout"), dict(vectorized=False)):
+        GenFVRunner(RunConfig(**kw, **extra), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        GenFVRunner(RunConfig(**kw, generator="ddpm"), device="cpu")
     runner = GenFVRunner(RunConfig(**dict(kw, rounds=0)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        runner.train(checkpoint_path="ckpt")
+    assert runner.train(checkpoint_path=str(tmp_path / "ckpt")).logs == []
+    assert (tmp_path / "ckpt.npz").exists() is False
     ref = JRunner(JRunConfig(**dict(kw, rounds=0)))
     n = sum(x.numel() for x in tree_leaves(runner.server.params))
     assert runner.model_bits == ref.model_bits == n * 32.0

@@ -162,7 +162,8 @@ def test_fleet_run_full_width_matches_jax(params):
     je = JFleetEngine(CFG_J, eng.h, eng.batch_size, CLIENT_LR)
     want, want_losses = je.run(jax.tree.map(jnp.asarray, pj), list(bis), list(bls), rhos,
                                emd_bar, aug_j)
-    got, losses = eng.run(pt, list(bis), list(bls), rhos, emd_bar, aug_t)
+    got, losses, finite = eng.run(pt, list(bis), list(bls), rhos, emd_bar, aug_t)
+    assert finite.all()
     err = np.abs(_flat(got) - _flat_jax(want)).max()
     assert err <= AGG_TOL32, f"K={k} full width: aggregate {err:.3e} > {AGG_TOL32}"
     np.testing.assert_allclose(losses, np.asarray(want_losses), rtol=1e-3,

@@ -343,8 +343,13 @@ def _forbidden(name):
 
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "check_flash_limits.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "check_flash_limits.py",
+        ROOT / "profile_genfv.py", ROOT / "ab_genfv_rounds.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT / "src")) for p in files if "src" in p.parts}
+    assert {"repro_torch/fl/faults.py", "repro_torch/checkpoint/io.py",
+            "repro_torch/obs/trace.py", "repro_torch/obs/sinks.py",
+            "repro_torch/obs/metrics.py"} <= names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -367,6 +372,8 @@ def test_port_imports_with_jax_blocked():
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.fl.faults, repro_torch.fl.rounds, repro_torch.checkpoint\n"
+        "import repro_torch.obs, repro_torch.obs.sinks\n"
         "print('imported')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
