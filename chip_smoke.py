@@ -26,7 +26,12 @@ Phases, each fatal on failure:
      without that vehicle; the always-guarded eq. 4 against the unguarded
      one on a clean fleet; a sequential round against the vectorized one;
      golden resume and tracer neutrality bitwise under deterministic cuDNN;
-     the reduced faulted run on the card against the CPU;
+     the reduced faulted run on the card against the CPU; then, with the
+     DDPM generator (genfv_ddpm): the reference-pool pretraining twice per
+     cuDNN setting, three full-width rounds priced with the card's measured
+     t_image, the sampler's bucket and shard invariance and its throughput
+     at base widths 16 and 64, a reduced ddpm run against the CPU, and
+     golden resume with t_image from the checkpoint;
   7. time each kernel at the serving shapes beside its bound, its plain
      version and, for attention, PyTorch's scaled_dot_product_attention.
 
@@ -40,10 +45,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -59,8 +66,15 @@ from repro_torch.core.emd import (add_weighted, aggregate_stacked_guarded,  # no
 from repro_torch.fl import fleet as fleet_mod  # noqa: E402
 from repro_torch.core.planner import bucket_size  # noqa: E402
 from repro_torch.core.two_scale import plan_round  # noqa: E402
+from repro_torch.diffusion.ddpm import DDPM, make_ddpm  # noqa: E402
 from repro_torch.fl.faults import FaultSpec  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
+from repro_torch.gen import service as gen_service  # noqa: E402
+from repro_torch.gen.calib import (CALIB_BUCKET, MeasuredService, _calib_key,  # noqa: E402
+                                   load_calibration, save_calibration)
+from repro_torch.gen.pretrain import pretrain_ddpm  # noqa: E402
+from repro_torch.gen.sampler import image_noise, sample_schedule  # noqa: E402
+from repro_torch.gen.service import BatchedDDPMGenerator  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      rglru_scan_ref)
@@ -685,12 +699,17 @@ LEDGER_INTS = ("selected", "b_gen", "dropped", "late", "rejected", "stale_merged
                "stale_dropped", "bcd_iters")
 
 
-def genfv_card_matches_cpu(device, run_kw=GENFV_REDUCED, faults=None, what="reduced"):
+def genfv_card_matches_cpu(device, run_kw=GENFV_REDUCED, faults=None, what="reduced",
+                           runner_kw=lambda d: {}):
     """The reduced run on the card and on the CPU from the same weights;
-    each round starts both from the CPU's round-start parameters."""
+    each round starts both from the CPU's round-start parameters.
+    `runner_kw(d)` gives the runner on device d its other arguments (the
+    ddpm run's generator and service); the generated pools are held to
+    GEN_POOL_TOL."""
     cpu = torch.device("cpu")
-    runners = {d: GenFVRunner(RunConfig(**run_kw), faults=faults, device=d) for d in (cpu, device)}
-    worst_p = worst_l = 0.0
+    runners = {d: GenFVRunner(RunConfig(**run_kw), faults=faults, device=d, **runner_kw(d))
+               for d in (cpu, device)}
+    worst_p = worst_l = worst_g = 0.0
     ledger = []
     for t in range(run_kw["rounds"]):
         runners[device].server.params = tree_map(lambda x: x.to(device),
@@ -709,6 +728,12 @@ def genfv_card_matches_cpu(device, run_kw=GENFV_REDUCED, faults=None, what="redu
                 f"card vs CPU ({what}) round {t}: loss {dl:.3e} (rtol {GENFV_LOSS_RTOL}), "
                 f"params {dp:.3e} (tol {GENFV_PARAM_TOL})")
         worst_p, worst_l = max(worst_p, dp), max(worst_l, dl)
+        if runners[cpu].server.pool_imgs is not None:
+            dg = float(np.abs(runners[device].server.pool_imgs
+                              - runners[cpu].server.pool_imgs).max())
+            require(dg <= GEN_POOL_TOL, f"card vs CPU ({what}) round {t}: generated images "
+                                        f"{dg:.3e} > {GEN_POOL_TOL}")
+            worst_g = max(worst_g, dg)
         ledger.append(tuple(getattr(logs[device], f) for f in LEDGER_INTS))
     if faults is not None:
         totals = {f: sum(row[LEDGER_INTS.index(f)] for row in ledger)
@@ -718,7 +743,8 @@ def genfv_card_matches_cpu(device, run_kw=GENFV_REDUCED, faults=None, what="redu
     print(f"genfv card == CPU ({what}, {run_kw['rounds']} rounds): "
           f"{', '.join(LEDGER_INTS)} and t_round equal {ledger}; loss within "
           f"{worst_l:.3e} relative (tol {GENFV_LOSS_RTOL}), params within {worst_p:.3e} "
-          f"(tol {GENFV_PARAM_TOL})")
+          f"(tol {GENFV_PARAM_TOL}), generated images within {worst_g:.3e} (tol {GEN_POOL_TOL})")
+    return {"loss_rel": worst_l, "params_max_abs": worst_p, "images_max_abs": worst_g}
 
 
 def genfv_bucket_invariance(runner):
@@ -1079,6 +1105,291 @@ def genfv(device):
     torch.cuda.empty_cache()
     genfv_card_matches_cpu(device)
     genfv_faults(device)
+    torch.cuda.empty_cache()
+    genfv_ddpm(device)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6, continued: the GenFV round loop with the DDPM generator
+# ---------------------------------------------------------------------------
+# The full-width run of phase 6 with generator="ddpm": the runner's DDPM
+# (200 timesteps, base 16, pretrained 80 steps on 512 reference images) at
+# 50 strided sampling steps, eq. 48 priced with the card's measured t_image.
+GENFV_DDPM = dict(GENFV_FULL, generator="ddpm")
+# Sampler throughput: the runner's width and init_unet's default (base 64:
+# channels 64/128/256, embedding 256), at the runner's 50 steps.
+SAMPLER_BASES = (16, 64)
+SAMPLER_BUCKETS = (16, 64, 256)
+SAMPLER_STEPS = 50
+# The ddpm run on the card against the CPU: the reduced run, the runner's
+# DDPM with the card's pretrained parameters on both, 10 sampling steps,
+# t_image fixed at the assumed service's 0.05 s.
+GENFV_DDPM_REDUCED = dict(GENFV_REDUCED, generator="ddpm", sampler_steps=10)
+# Generated images (in [-1, 1]) on the card against the CPU, from the same
+# parameters and host noise (1.609e-06 apart at 10 steps on an H100).
+GEN_POOL_TOL = 1e-4
+# Fused == per-label == offset shard and padding on the card: cuDNN picks
+# its algorithms by batch size, default or deterministic alike, so passes
+# at other batch sizes differ (3.636e-06 at 50 steps on an H100, in both
+# settings) and are held to this tolerance; the same pass twice is held
+# bitwise. (On the CPU all four are bitwise, tests/test_torch_genfv_gen.py.)
+GEN_INVARIANCE_TOL = 1e-4
+
+
+def _max_diff(trees):
+    a, b = (_flat(t) for t in trees)
+    return float((a - b).abs().max())
+
+
+def genfv_pretraining(device):
+    """The runner's reference-pool pretraining on the card, twice with
+    cuDNN's default algorithms and twice with deterministic ones: ms, final
+    loss, and how far each pair's parameters lie apart (the deterministic
+    pair held bitwise)."""
+    ddpm = gen_service.runner_ddpm(10)
+    kw = dict(steps=gen_service.PRETRAIN_STEPS, ref_size=gen_service.PRETRAIN_REF,
+              seed=gen_service.PRETRAIN_SEED, device=device)
+    runs = {}
+    for name in ("default", "default", "deterministic", "deterministic"):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=name == "deterministic", allow_tf32=False):
+            sync(device)
+            t0 = time.perf_counter()
+            params, losses = pretrain_ddpm(ddpm, **kw)
+            sync(device)
+        runs.setdefault(name, []).append((params, losses, 1e3 * (time.perf_counter() - t0)))
+    out = {"pretrain_ms": [r[2] for v in runs.values() for r in v],
+           "pretrain_final_loss": runs["default"][0][1][-1],
+           "pretrain_first_loss": runs["default"][0][1][0]}
+    for name, ((pa, la, _), (pb, lb, _)) in runs.items():
+        out[f"pretrain_{name}_twice_max_abs"] = _max_diff((pa, pb))
+        out[f"pretrain_{name}_twice_bitwise"] = out[f"pretrain_{name}_twice_max_abs"] == 0.0
+    require(all(math.isfinite(x) for v in runs.values() for r in v for x in r[1]),
+            "pretraining: non-finite loss")
+    # any process reconstructs the pretrained generator: on the card only
+    # under deterministic cuDNN (the default weight gradient is not)
+    require(out["pretrain_deterministic_twice_bitwise"],
+            "deterministic cuDNN: two pretrainings differ")
+    print(f"genfv ddpm pretraining ({ddpm.timesteps} timesteps, base {ddpm.base_width}, "
+          f"{kw['steps']} steps on {kw['ref_size']} images): "
+          f"{', '.join(f'{x:.2f}' for x in out['pretrain_ms'])} ms (default, default, "
+          f"deterministic, deterministic); loss {out['pretrain_first_loss']:.4f} -> "
+          f"{out['pretrain_final_loss']:.4f}; two pretrainings apart by "
+          f"{out['pretrain_default_twice_max_abs']:.3e} (default cuDNN), "
+          f"{out['pretrain_deterministic_twice_max_abs']:.3e} (deterministic cuDNN)")
+    return out, runs["default"][0][0]
+
+
+def genfv_ddpm_full_width(device):
+    """GENFV_DDPM through the runner's entry point, traced by Obs: the
+    runner pretrains (or takes the cached parameters) and measures t_image
+    on this card; each round prints its generation and stages."""
+    obs = Obs(meta={"phase": "genfv_ddpm"})
+    t0 = time.perf_counter()
+    runner = GenFVRunner(RunConfig(**GENFV_DDPM), obs=obs, device=device)
+    build_s = time.perf_counter() - t0
+    gen = runner.server.generator
+    require(isinstance(gen, BatchedDDPMGenerator) and isinstance(runner.svc, MeasuredService),
+            "genfv ddpm: the runner did not build the DDPM service")
+    require(all(x.device == device for x in tree_leaves(gen.params)),
+            "genfv ddpm: the generator's parameters are not on the card")
+    print(f"genfv ddpm: width {runner.run.width_mult}, DDPM {gen.ddpm}, {gen.sampler_steps} "
+          f"sampling steps; measured t_image {runner.svc.t_image * 1e3:.4f} ms an image "
+          f"(bucket {CALIB_BUCKET}); runner built in {build_s:.1f} s")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    rounds = []
+    for t in range(GENFV_DDPM["rounds"]):
+        log, round_ms = _timed_round(runner, t, device)
+        spans = _round_spans(obs, t)
+        r = {f: getattr(log, f) for f in ("round", "selected", "b_gen", "t_bar", "loss",
+                                          "accuracy")}
+        r.update({"images": log.b_gen, "bucket": bucket_size(log.b_gen) if log.b_gen else 0,
+                  "round_ms": round_ms})
+        for name in ("plan", "generate", "local_sgd", "aggregate", "world_step", "eval"):
+            r[f"{name}_ms"] = spans[f"round/{name}"][0]
+        r["sample_ms"] = spans["round/generate/sample"][0] if log.b_gen else 0.0
+        r["omega_a_ms"] = r["generate_ms"] - r["sample_ms"]
+        rounds.append(r)
+        print(f"genfv ddpm round {t}: selected {log.selected}, b_gen {log.b_gen} images "
+              f"(bucket {r['bucket']}), t_bar {log.t_bar:.4f} s, loss {log.loss:.4f}, accuracy "
+              f"{log.accuracy:.4f}; ms: plan {r['plan_ms']:.2f}, sampling {r['sample_ms']:.2f}, "
+              f"omega_a {r['omega_a_ms']:.2f}, fleet step {r['aggregate_ms']:.2f}, eval "
+              f"{r['eval_ms']:.2f}, round {round_ms:.2f}")
+        require(math.isfinite(log.loss) and 0.0 <= log.accuracy <= 1.0,
+                f"genfv ddpm round {t}: loss {log.loss}, accuracy {log.accuracy}")
+    require(sum(r["b_gen"] for r in rounds) > 0, "genfv ddpm: no round generated")
+    pool = runner.server.pool_imgs
+    require(pool.shape == (sum(r["b_gen"] for r in rounds), 32, 32, 3)
+            and bool(np.isfinite(pool).all()) and float(np.abs(pool).max()) <= 1.0,
+            "genfv ddpm: generated pool out of shape or range")
+    require(obs.metrics.counter_value("gen/images") == len(pool), "genfv ddpm: gen/images")
+    require(bool(torch.isfinite(_flat(runner.server.params)).all()),
+            "genfv ddpm: non-finite global parameters")
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else None)
+    return runner, {"t_image_s": runner.svc.t_image, "runner_build_s": build_s, "rounds": rounds,
+                    "peak_gib": peak}
+
+
+def genfv_sampler_throughput(device):
+    """The bucketed sampler at SAMPLER_STEPS steps, per base width and
+    bucket: the host's noise draw and the pass on the card (noise upload,
+    denoising loop, images back to the host) timed apart, the pass as the
+    best of two after a warm-up, and the noise's upload alone; images/s and
+    ms per denoising step of the pass; peak memory."""
+    out = []
+    for base in SAMPLER_BASES:
+        ddpm = DDPM(timesteps=gen_service.RUNNER_TIMESTEPS, num_classes=10, base_width=base)
+        params = make_ddpm(np.random.default_rng(base), ddpm, device)
+        for bucket in SAMPLER_BUCKETS:
+            labels = np.arange(bucket) % 10
+            key = gen_service.gen_round_key(0, 0)
+            t0 = time.perf_counter()
+            noise = image_noise(key, 0, bucket, SAMPLER_STEPS)
+            noise_ms = 1e3 * (time.perf_counter() - t0)
+            sync(device)
+            t0 = time.perf_counter()
+            torch.from_numpy(noise).to(device)
+            sync(device)
+            upload_ms = 1e3 * (time.perf_counter() - t0)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            imgs = sample_schedule(params, ddpm, key, labels, SAMPLER_STEPS, noise=noise)
+            passes = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                again = sample_schedule(params, ddpm, key, labels, SAMPLER_STEPS, noise=noise)
+                passes.append(1e3 * (time.perf_counter() - t0))
+            require(bool(np.isfinite(imgs).all()), f"sampler base {base} bucket {bucket}: non-finite")
+            r = {"base": base, "bucket": bucket, "steps": SAMPLER_STEPS, "noise_ms": noise_ms,
+                 "noise_upload_ms": upload_ms,
+                 "pass_ms": min(passes), "images_per_s": bucket / (min(passes) / 1e3),
+                 "ms_per_step": min(passes) / SAMPLER_STEPS,
+                 "noise_mb": noise.nbytes / 1e6,
+                 "repeat_max_abs": float(np.abs(imgs - again).max()),
+                 "peak_gib": (torch.cuda.max_memory_allocated(device) / 2**30
+                              if device.type == "cuda" else None)}
+            out.append(r)
+            print(f"sampler base {base}, bucket {bucket}, {SAMPLER_STEPS} steps: pass "
+                  f"{r['pass_ms']:.2f} ms ({r['images_per_s']:.1f} images/s, "
+                  f"{r['ms_per_step']:.3f} ms a denoising step), host noise "
+                  f"{noise_ms:.2f} ms for {r['noise_mb']:.1f} MB (its upload alone "
+                  f"{upload_ms:.2f} ms), peak "
+                  f"{'not measured' if r['peak_gib'] is None else format(r['peak_gib'], '.2f') + ' GiB'}"
+                  f", same pass twice max |delta| {r['repeat_max_abs']:.3e}")
+        del params
+    return out
+
+
+def genfv_gen_invariance(params, ddpm, device):
+    """Image j depends on (params, key, start + j, label) only: one fused
+    pass over a multi-label schedule against the per-label passes, an
+    offset shard, and the schedule padded to a larger bucket; with cuDNN's
+    default algorithms and with deterministic ones."""
+    key = gen_service.gen_round_key(0, 1)
+    counts = np.array([5, 0, 3, 9, 1, 2, 0, 4, 6, 1])
+    labels = np.repeat(np.arange(10), counts)
+    out = {}
+    for name in ("default", "deterministic"):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=name == "deterministic", allow_tf32=False):
+            fused = sample_schedule(params, ddpm, key, labels, SAMPLER_STEPS)
+            parts, off = [], 0
+            for lab, c in enumerate(counts):
+                if c:
+                    parts.append(sample_schedule(params, ddpm, key, [lab] * int(c),
+                                                 SAMPLER_STEPS, start=off))
+                    off += int(c)
+            shard = sample_schedule(params, ddpm, key, labels[7:20], SAMPLER_STEPS, start=7)
+            padded = sample_schedule(params, ddpm, key, labels, SAMPLER_STEPS, bucket=128)
+            twice = sample_schedule(params, ddpm, key, labels, SAMPLER_STEPS)
+        d = {"per_label": float(np.abs(fused - np.concatenate(parts)).max()),
+             "shard": float(np.abs(fused[7:20] - shard).max()),
+             "padding": float(np.abs(fused - padded).max()),
+             "twice": float(np.abs(fused - twice).max())}
+        out[name] = d
+        require(max(d.values()) <= GEN_INVARIANCE_TOL and d["twice"] == 0.0,
+                f"sampler invariance ({name} cuDNN): {d} > {GEN_INVARIANCE_TOL}, or the "
+                f"same pass twice not bitwise")
+    print(f"genfv ddpm sampler invariance ({len(labels)} images, bucket "
+          f"{bucket_size(len(labels))}, {SAMPLER_STEPS} steps), max |delta| against the fused "
+          f"pass: default cuDNN {out['default']}, deterministic cuDNN {out['deterministic']} "
+          f"(tol {GEN_INVARIANCE_TOL}; the same pass twice bitwise)")
+    return out
+
+
+def genfv_ddpm_resume(device):
+    """Under deterministic cuDNN, the reduced ddpm run (the runner's DDPM,
+    its cached parameters, this card's measured t_image) stopped after
+    round 0 and resumed in a fresh runner after the calibration file was
+    rewritten with another t_image: the resumed runner prices eq. 48 with
+    the checkpoint's t_image and replays the uninterrupted run bitwise."""
+    run = RunConfig(**dict(GENFV_REDUCED, generator="ddpm", rounds=3))
+    path = str(CKPT_DIR / "ddpm_runner.npz")
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        golden = GenFVRunner(run, device=device)
+        want = golden.train().logs
+        first = GenFVRunner(run, device=device)
+        first.run_round(0)
+        first.save_checkpoint(path)
+        t_image = first.svc.t_image
+        key = _calib_key(golden.server.generator.ddpm, run.sampler_steps, CALIB_BUCKET, device)
+        entries = load_calibration()
+        entries[key] = dict(entries[key], t_image=3.0 * t_image)
+        save_calibration(entries)
+        resumed = GenFVRunner(run, device=device)
+        require(resumed.svc.t_image == 3.0 * t_image, "resume: the rewritten calibration")
+        require(resumed.load_checkpoint(path) == 1, "resume: next round")
+        require(resumed.svc.t_image == t_image, "resume: t_image not restored from the checkpoint")
+        got = resumed.train().logs
+    Path(path).unlink()
+    require(got == want and torch.equal(_flat(resumed.server.params), _flat(golden.server.params))
+            and np.array_equal(resumed.server.pool_imgs, golden.server.pool_imgs),
+            "deterministic cuDNN: the resumed ddpm run differs from the uninterrupted run")
+    print(f"genfv ddpm resume (deterministic cuDNN, {run.rounds} rounds, b_gen "
+          f"{[l.b_gen for l in want]}): t_image {t_image * 1e3:.4f} ms restored from the "
+          f"checkpoint over a rewritten calibration; every RoundLog field, the parameters and "
+          f"the generated pool bitwise")
+
+
+def genfv_ddpm(device):
+    """Phase genfv_ddpm, under a temporary REPRO_ARTIFACTS so that every
+    call measures t_image afresh."""
+    t_start = time.perf_counter()
+    ops.flash_attention.launches = 0
+    ops.rglru_scan.launches = 0
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    old = os.environ.get("REPRO_ARTIFACTS")
+    with tempfile.TemporaryDirectory() as artifacts:
+        os.environ["REPRO_ARTIFACTS"] = artifacts
+        try:
+            pre, params = genfv_pretraining(device)
+            runner, full = genfv_ddpm_full_width(device)
+            ddpm = runner.server.generator.ddpm
+            del runner
+            torch.cuda.empty_cache()
+            inv = genfv_gen_invariance(params, ddpm, device)
+            throughput = genfv_sampler_throughput(device)
+            torch.cuda.empty_cache()
+            steps = GENFV_DDPM_REDUCED["sampler_steps"]
+            svc = MeasuredService(t_image=0.05, steps=steps)
+            cpu_vs_card = genfv_card_matches_cpu(
+                device, GENFV_DDPM_REDUCED, what="reduced, ddpm",
+                runner_kw=lambda d: {"svc": svc, "generator": BatchedDDPMGenerator(
+                    tree_map(lambda x: x.to(d), params), ddpm, seed=0, sampler_steps=steps)})
+            genfv_ddpm_resume(device)
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_ARTIFACTS", None)
+            else:
+                os.environ["REPRO_ARTIFACTS"] = old
+    require(ops.flash_attention.launches == 0 and ops.rglru_scan.launches == 0,
+            "the ddpm GenFV path launched a serving kernel")
+    phase_s = time.perf_counter() - t_start
+    print(f"genfv ddpm: phase {phase_s:.1f} s; hand-written kernel launches 0 (the path runs none)")
+    print(json.dumps({"genfv_ddpm": {**pre, **full, "sampler": throughput, "invariance": inv,
+                                     "card_vs_cpu": cpu_vs_card, "phase_s": phase_s}}))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Carry the JAX package's parameters into the port.
 
-`from_jax_cnn_params(tree)` carries the GenFV CNN (see its docstring).
+`from_jax_cnn_params(tree)` carries the GenFV CNN and
+`from_jax_unet_params(tree)` the DDPM UNet (see their docstrings).
 
 `from_jax_params(cfg, tree)` takes the JAX parameter pytree with numpy
 leaves (`jax.tree.map(np.asarray, params)`) and returns the port's
@@ -73,3 +74,12 @@ def from_jax_cnn_params(tree, *, device="cuda"):
         return torch.from_numpy(np.array(a, order="C")).to(device)
 
     return tree_map(leaf, tree)
+
+
+def from_jax_unet_params(tree, *, device="cuda"):
+    """JAX DDPM UNet parameter pytree (numpy leaves of
+    `repro.diffusion.unet.init_unet`) -> the port's tree of the same names on
+    `device` (`diffusion/unet.py`), by the CNN's leaf rule: convolutions go
+    from HWIO to OIHW; dense matrices keep their [d_in, d_out] (`x @ W`)
+    layout, and GroupNorm scale and bias theirs."""
+    return from_jax_cnn_params(tree, device=device)

@@ -1,11 +1,16 @@
-"""AIGC generation service of the port's GenFV server: `OracleGenerator`,
-a copy of the JAX package's (`generate(labels, rng, round_idx=0) ->
-images`, the same draws and float ops, so the same images bit for bit).
+"""AIGC generation services of the port's GenFV server, the counterparts
+of the JAX package's, behind one interface
+`generate(labels, rng, round_idx=0) -> images`:
 
-The oracle is a procedural sampler with a controllable *quality gap*
-(blur + noise + pattern distortion), standing in for a pre-trained
-foundation model at RSU scale; it honours SUBP4's per-label schedule. The
-real diffusion dataplane (`DDPMGenerator`) is not ported yet.
+* DDPMGenerator   — the class-conditional DDPM (diffusion/ddpm.py) with
+                    round-keyed sampling streams (gen/service.py).
+* OracleGenerator — a copy of the JAX package's procedural sampler (the
+                    same draws and float ops, so the same images bit for
+                    bit) with a controllable *quality gap* (blur + noise +
+                    pattern distortion), standing in for a pre-trained
+                    foundation model at RSU scale.
+
+Both honour SUBP4's per-label schedule.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from functools import lru_cache
 import numpy as np
 
 from repro_torch.data.synthetic import IMG, _coarse_pattern, _fine_pattern
+from repro_torch.diffusion import DDPM
 
 #: every dataset's full class set (cifar100's 100 is the max) times a
 #: handful of fine_frac variants fits; beyond that, eviction beats the
@@ -73,3 +79,27 @@ class OracleGenerator:
         rolled = pats[np.arange(n)[:, None, None],
                       rows[:, :, None], cols[:, None, :]]
         return np.clip(0.8 * rolled + eps, -1, 1)
+
+
+class DDPMGenerator:
+    """Whole-schedule DDPM sampling with round-keyed streams: round ``t``
+    draws from ``SeedSequence((seed, t, GEN_KEY))`` (gen/service.py) and
+    never touches `rng`. `BatchedDDPMGenerator` does the sampling; this
+    class keeps the JAX package's one-pass-per-call wrapper, at the full
+    noise schedule unless `sampler_steps` strides it."""
+
+    def __init__(self, params, ddpm: DDPM, seed: int = 0,
+                 sampler_steps: int | None = None):
+        # lazy: repro_torch.gen reaches fl.client, which imports this
+        # package
+        from repro_torch.gen.service import BatchedDDPMGenerator
+        self._inner = BatchedDDPMGenerator(
+            params, ddpm, seed=seed,
+            sampler_steps=ddpm.timesteps if sampler_steps is None
+            else sampler_steps)
+        self.params = params
+        self.ddpm = ddpm
+
+    def generate(self, labels: np.ndarray, rng: np.random.Generator,
+                 round_idx: int = 0):
+        return self._inner.generate(labels, rng, round_idx=round_idx)

@@ -20,8 +20,9 @@ package's order, so fleets, selections, batches and generated images agree
 with the reference bit for bit; fault draws are round-keyed
 (fl/faults.py), so faulted runs agree too. The CNN's initial weights come
 from a torch generator and cannot (`convert.from_jax_cnn_params` carries
-the reference's over). Not ported yet: the DDPM generator (raising
-`NotImplementedError`); streaming has no entry point here.
+the reference's over). `generator="ddpm"` samples each round's SUBP4
+schedule with the pretrained DDPM (repro_torch.gen) and prices eq. 48 with
+its measured per-image time. Streaming has no entry point here.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ STRATEGIES = ("genfv", "fedavg", "no_emd", "madca", "ocean",
 #: counterpart of the JAX package's "jax".
 PLANNERS = ("torch", "numpy")
 
-#: AIGC services of the JAX package; only "oracle" is ported.
+#: AIGC services: the procedural oracle and the pretrained DDPM.
 GENERATORS = ("oracle", "ddpm")
 
 # moderate client lr: high-lr few-class local models drift into incompatible
@@ -76,9 +77,6 @@ CLIENT_LR = 5e-2
 
 #: test images per forward pass of the evaluation
 EVAL_CHUNK = 2048
-
-_DDPM = ("the DDPM generator is not ported yet: ROADMAP.md Queue 1 item 8 "
-         "(the AIGC dataplane)")
 
 
 def validate_run_fields(strategy: str, scenario: str, planner: str,
@@ -216,17 +214,18 @@ class GenFVRunner:
     ("cuda" unless the caller asks for another; raises without CUDA).
 
     `fl_cfg` replaces the default `GenFVConfig` (the scenario's overrides
-    still apply); `faults`, a `FaultSpec`, overrides `run.faults`'s
-    registered schedule; `obs` overrides `run.obs`."""
+    still apply); `generator` replaces the AIGC service `run.generator`
+    names and `svc` the service eq. 48 is priced with; `faults`, a
+    `FaultSpec`, overrides `run.faults`'s registered schedule; `obs`
+    overrides `run.obs`."""
     #: manifest schema of `save_checkpoint` (the layout of the JAX
     #: package's runner-ckpt/v4, with the port's parameter tree)
     CKPT_SCHEMA = "repro_torch.fl/runner-ckpt/v4"
 
     def __init__(self, run: RunConfig, fl_cfg: GenFVConfig | None = None,
-                 faults: FaultSpec | None = None, obs=None, device="cuda"):
+                 generator=None, faults: FaultSpec | None = None, obs=None,
+                 svc=None, device="cuda"):
         self.device = resolve_device(device)
-        if run.generator == "ddpm":
-            raise NotImplementedError(_DDPM)
         self.run = run
         self.obs = obs if obs is not None else (
             run.obs if run.obs is not None else NULL_OBS)
@@ -259,8 +258,25 @@ class GenFVRunner:
         # explicit None check: model_bits=0.0 is a legal override (free comms)
         self.model_bits = (run.model_bits if run.model_bits is not None
                            else n_params * 32.0)
-        self.server = GenFVServer(self.cnn_cfg, params,
-                                  OracleGenerator(run.dataset), self.rng)
+        # The oracle keeps svc=None, so plan_round prices eq. 48 with the
+        # assumed DiffusionService as the JAX package does; the ddpm path
+        # prices it with the measured per-image time of the sampler on this
+        # device. Lazy imports: repro_torch.gen reaches fl.client, which
+        # imports this package.
+        self.svc = svc
+        if generator is None:
+            if run.generator == "ddpm":
+                from repro_torch.gen.calib import calibrated_service
+                from repro_torch.gen.service import make_ddpm_generator
+                generator = make_ddpm_generator(
+                    run.dataset, classes, run.seed, run.sampler_steps,
+                    obs=self.obs, device=self.device)
+                if self.svc is None:
+                    self.svc = calibrated_service(
+                        generator.params, generator.ddpm, run.sampler_steps)
+            else:
+                generator = OracleGenerator(run.dataset)
+        self.server = GenFVServer(self.cnn_cfg, params, generator, self.rng)
         self.engine = FleetEngine(self.cnn_cfg, self.cfg.local_steps,
                                   self.cfg.batch_size, lr=CLIENT_LR)
         self.classes = classes
@@ -337,7 +353,7 @@ class GenFVRunner:
                            planner=self.run.planner, bucket=bucket):
             plan = plan_round(self.cfg, pending.fleet, self.model_bits,
                               self.cfg.local_steps, b_prev=self.b_prev,
-                              alpha_override=pending.alpha,
+                              svc=self.svc, alpha_override=pending.alpha,
                               planner=self.run.planner, device=self.device)
         return plan
 
@@ -681,8 +697,7 @@ class GenFVRunner:
 
     def _checkpoint_state(self) -> dict:
         """The runner's complete mutable state as a checkpointable tree
-        (the JAX package's layout; `gen` stays empty until the DDPM
-        generator is ported)."""
+        (the JAX package's layout; `gen` records the measured service)."""
         rng_state = np.frombuffer(
             json.dumps(self.rng.bit_generator.state).encode(), np.uint8)
         entries = self.stale.entries
@@ -690,7 +705,9 @@ class GenFVRunner:
             "rng": rng_state.copy(),
             "b_prev": np.int64(self.b_prev),
             "next_round": np.int64(self.next_round),
-            "gen": {},
+            "gen": ({} if self.svc is None else
+                    {"t_image": np.float64(self.svc.t_per_image),
+                     "steps": np.int64(getattr(self.svc, "steps", 0))}),
             "params": self.server.params,
             "logs": self._logs_state(),
             "pool": ({} if self.server.pool_imgs is None else
@@ -752,6 +769,11 @@ class GenFVRunner:
             bytes(np.asarray(state["rng"], np.uint8)).decode())
         self.b_prev = int(state["b_prev"])
         self.next_round = int(state["next_round"])
+        if state["gen"]:
+            # eq. 48 prices the remaining rounds against the recorded t0
+            from repro_torch.gen.calib import MeasuredService
+            self.svc = MeasuredService(t_image=float(state["gen"]["t_image"]),
+                                       steps=int(state["gen"]["steps"]))
         self.server.params = self._to_device(state["params"])
         logs = state["logs"]
         names = [f.name for f in dataclasses.fields(RoundLog)]

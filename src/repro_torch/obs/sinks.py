@@ -16,6 +16,8 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.exp.artifacts import artifact_dir
+
 SCHEMA_PREFIX = "repro_torch.obs"
 METRICS_SCHEMA = f"{SCHEMA_PREFIX}/metrics/v1"
 #: file-name prefix of the port's metrics artifacts
@@ -54,19 +56,13 @@ def metrics_payload(obs, name: str = "run") -> Dict[str, Any]:
     return payload
 
 
-def _artifact_dir(directory: str | None = None) -> str:
-    d = directory or os.environ.get("REPRO_ARTIFACTS", "artifacts")
-    os.makedirs(d, exist_ok=True)
-    return d
-
-
 def save_metrics_artifact(payload: Dict[str, Any], name: str,
                           directory: str | None = None) -> str:
     """Write ``<dir>/torch_<name>.metrics.json``; returns the path."""
     if payload.get("schema") != METRICS_SCHEMA:
         raise ValueError(f"payload schema {payload.get('schema')!r} != "
                          f"{METRICS_SCHEMA!r}")
-    path = os.path.join(_artifact_dir(directory),
+    path = os.path.join(artifact_dir(directory),
                         f"{ARTIFACT_PREFIX}{name}.metrics.json")
     with open(path, "w") as f:
         json.dump(payload, f, sort_keys=True, indent=1, allow_nan=False)

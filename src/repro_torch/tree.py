@@ -17,12 +17,14 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of `tree` (and the matching leaves of the trees
+    in `rest`, which share its structure), rebuilt as `tree`."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+    return fn(tree, *rest)
 
 
 class FlatSpec:

@@ -299,6 +299,37 @@ def test_span_names_equal_the_reference_runner(tmp_path):
     assert metric_names == ref_names
 
 
+def test_ddpm_span_names_equal_the_reference_runner(monkeypatch, tmp_path):
+    """The same ddpm run (the tiny dataplane of
+    tests/test_torch_genfv_ddpm_rounds.py, numpy planner) traced in both
+    packages emits the same spans, the generator's `round/generate/sample`
+    included, each as often and with the same first-call stage, and the
+    same `gen/images` and `gen/pad_waste` metrics."""
+    import repro.gen.service as j_service
+    import repro_torch.gen.service as gen_service
+    from test_torch_genfv_ddpm_rounds import STEPS, TINY_BUDGET, seed_calibrations
+    for k, v in TINY_BUDGET.items():
+        monkeypatch.setattr(gen_service, k, v)
+        monkeypatch.setattr(j_service, k, v)
+    monkeypatch.setenv("REPRO_ARTIFACTS", str(tmp_path))
+    seed_calibrations()
+    kw = dict(planner="numpy", generator="ddpm", sampler_steps=STEPS, **FAST)
+    jobs, tobs = JObs(), Obs()
+    jres = JRunner(JRunConfig(**kw), fl_cfg=JGenFVConfig(**CFG), obs=jobs).train()
+    tres = _runner(RunConfig(**kw), obs=tobs).train()
+    assert [l.b_gen for l in jres.logs] == [l.b_gen for l in tres.logs]
+    want, got = _span_counts(jobs), _span_counts(tobs)
+    assert got[("round/generate/sample", "compile")] >= 1
+    assert sum(n for (name, _), n in got.items() if name == "round/generate/sample") == \
+        sum(1 for l in tres.logs if l.b_gen > 0)
+    assert got == want
+    for obs in (jobs, tobs):
+        assert obs.metrics.counter_value("gen/images") == sum(l.b_gen for l in tres.logs)
+    dists = [{d["name"]: d for d in o.metrics.payload()["dists"]}["gen/pad_waste"]
+             for o in (jobs, tobs)]
+    assert dists[0] == dists[1]
+
+
 # ---------------------------------------------------------------------------
 # Library hygiene
 # ---------------------------------------------------------------------------

@@ -52,8 +52,12 @@ def test_runner_defaults_and_unported_paths(tmp_path):
         RunConfig(faults="platoon_dropout")
     for extra in (dict(faults="platoon_mass_dropout"), dict(vectorized=False)):
         GenFVRunner(RunConfig(**kw, **extra), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        GenFVRunner(RunConfig(**kw, generator="ddpm"), device="cpu")
+    # generator="ddpm" runs since the AIGC dataplane was ported
+    # (tests/test_torch_genfv_ddpm_rounds.py); its fields are validated
+    with pytest.raises(ValueError, match="unknown generator"):
+        RunConfig(generator="gan")
+    with pytest.raises(ValueError, match="sampler_steps"):
+        RunConfig(sampler_steps=0)
     runner = GenFVRunner(RunConfig(**dict(kw, rounds=0)), device="cpu")
     assert runner.train(checkpoint_path=str(tmp_path / "ckpt")).logs == []
     assert (tmp_path / "ckpt.npz").exists() is False

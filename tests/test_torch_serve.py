@@ -349,7 +349,11 @@ def test_port_imports_no_jax_and_no_reference():
     names = {str(p.relative_to(ROOT / "src")) for p in files if "src" in p.parts}
     assert {"repro_torch/fl/faults.py", "repro_torch/checkpoint/io.py",
             "repro_torch/obs/trace.py", "repro_torch/obs/sinks.py",
-            "repro_torch/obs/metrics.py"} <= names
+            "repro_torch/obs/metrics.py", "repro_torch/exp/artifacts.py",
+            "repro_torch/optim/optimizers.py", "repro_torch/diffusion/unet.py",
+            "repro_torch/diffusion/ddpm.py", "repro_torch/gen/sampler.py",
+            "repro_torch/gen/service.py", "repro_torch/gen/pretrain.py",
+            "repro_torch/gen/calib.py"} <= names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -374,6 +378,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
         "import repro_torch.fl.faults, repro_torch.fl.rounds, repro_torch.checkpoint\n"
         "import repro_torch.obs, repro_torch.obs.sinks\n"
+        "import repro_torch.gen, repro_torch.exp, repro_torch.optim, repro_torch.diffusion\n"
+        "import repro_torch.fl.generator\n"
         "print('imported')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
