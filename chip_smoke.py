@@ -23,15 +23,23 @@ Phases, each fatal on failure:
      Obs: poisoned updates rejected inside the fleet step (the finite mask
      equal to the injected poison), late updates buffered and merged, a
      forced departure; a poisoned fleet step against the clean fleet
-     without that vehicle; the always-guarded eq. 4 against the unguarded
-     one on a clean fleet; a sequential round against the vectorized one;
+     without that vehicle; the guarded eq. 4 against the unguarded one on
+     a clean fleet; a sequential round against the vectorized one;
      golden resume and tracer neutrality bitwise under deterministic cuDNN;
      the reduced faulted run on the card against the CPU; then, with the
      DDPM generator (genfv_ddpm): the reference-pool pretraining twice per
      cuDNN setting, three full-width rounds priced with the card's measured
      t_image, the sampler's bucket and shard invariance and its throughput
      at base widths 16 and 64, a reduced ddpm run against the CPU, and
-     golden resume with t_image from the checkpoint;
+     golden resume with t_image from the checkpoint; then the streaming
+     RSU and the experiment layer (genfv_stream_sweep): a full-width
+     StreamEngine run under rush_hour_deep_fade traced by stage, the
+     full-quorum stream against train() and a mid-stream resume (bitwise
+     under deterministic cuDNN), a churn pair on the card against the CPU,
+     a full-width sweep of the five scenarios with its planner dispatches
+     re-planned one by one and Theorem 1's table, sweep == per-cell
+     (deterministic cuDNN), a fault-free divergence kept on both paths, and
+     two pretrainings bitwise under the process's cuDNN flags;
   7. time each kernel at the serving shapes beside its bound, its plain
      version and, for attention, PyTorch's scaled_dot_product_attention.
 
@@ -61,18 +69,23 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import GenFVConfig, StreamConfig  # noqa: E402
 from repro_torch.core.emd import (add_weighted, aggregate_stacked_guarded,  # noqa: E402
                                   data_weights, emd_many)
 from repro_torch.fl import fleet as fleet_mod  # noqa: E402
 from repro_torch.core.planner import bucket_size  # noqa: E402
-from repro_torch.core.two_scale import plan_round  # noqa: E402
+from repro_torch.core.two_scale import plan_round, plan_rounds_batched  # noqa: E402
 from repro_torch.diffusion.ddpm import DDPM, make_ddpm  # noqa: E402
+from repro_torch.exp import ExperimentSpec, Sweep, theorem1_comparison  # noqa: E402
+from repro_torch.exp import sweep as sweep_mod  # noqa: E402
 from repro_torch.fl.faults import FaultSpec  # noqa: E402
+from repro_torch.fl import rounds as rounds_mod  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
+from repro_torch.fl.stream import StreamEngine  # noqa: E402
 from repro_torch.gen import service as gen_service  # noqa: E402
 from repro_torch.gen.calib import (CALIB_BUCKET, MeasuredService, _calib_key,  # noqa: E402
                                    load_calibration, save_calibration)
-from repro_torch.gen.pretrain import pretrain_ddpm  # noqa: E402
+from repro_torch.gen.pretrain import deterministic_cudnn, pretrain_ddpm  # noqa: E402
 from repro_torch.gen.sampler import image_noise, sample_schedule  # noqa: E402
 from repro_torch.gen.service import BatchedDDPMGenerator  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
@@ -122,14 +135,19 @@ def sync(device):
 # ---------------------------------------------------------------------------
 # Phase 1: device
 # ---------------------------------------------------------------------------
+def card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def check_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off (torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -759,13 +777,15 @@ def genfv_bucket_invariance(runner):
     emd_bar = float(np.mean(emd_many(np.stack([runner.hists[i] for i in parts]))))
     g = runner.server.params
     aug = tree_map(lambda x: 0.5 * x, g)
-    outs = [_flat(eng.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=kb)[0])
+    outs = [_flat(eng.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=kb,
+                         guard=False)[0])
             for kb in (8, 8, 16)]
     d_repeat = float((outs[0] - outs[1]).abs().max())
     d_bucket = float((outs[0] - outs[2]).abs().max())
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
-        det = [_flat(eng.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=kb)[0])
+        det = [_flat(eng.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=kb,
+                             guard=False)[0])
                for kb in (8, 8, 16)]
     d_det_repeat = float((det[0] - det[1]).abs().max())
     d_det_bucket = float((det[0] - det[2]).abs().max())
@@ -890,9 +910,9 @@ def genfv_faulted(device):
 
 
 def _unguarded_eq4(stacked, weights, aug, aug_weight, fallback):
-    """Eq. 4 without the finiteness guard, the chain the fleet step ran
-    before the guard was always on: fed = w0*s0; fed = fed + wi*si; ...
-    in float32. Returns an all-true finite mask, as a clean fleet gives."""
+    """Eq. 4 without the finiteness guard's selects, the JAX package's
+    unguarded chain: fed = w0*s0; fed = fed + wi*si; ... in float32.
+    Returns an all-true finite mask, as a clean fleet gives."""
     s32 = stacked.float()
     ws = [float(np.float32(w)) for w in weights]
     fed = ws[0] * s32[0]
@@ -920,10 +940,12 @@ def genfv_poisoned_step(runner, engine, device):
     """Full-width fleet steps at K=5, bucket 8: (1) vehicle 2's batches
     poisoned, against the step of the other four with their weights
     renormalised (within BUCKET_TOL, finite mask exact); (2) the clean
-    five, always guarded, against the same step with the unguarded eq. 4
-    (within BUCKET_TOL: cuDNN's default wgrad differs run to run); (3) on
-    the clean step's stacked [8, P] buffer, the guarded eq. 4 against the
-    unguarded one, bitwise, and each timed alone. Each pair is timed in
+    five, guarded, against the same step unguarded (`guard=False`, what a
+    step without injected poison runs; within BUCKET_TOL: cuDNN's default
+    wgrad differs run to run); (3) on the clean step's stacked [8, P]
+    buffer, eq. 4 guarded, unguarded (the same chain with an all-true
+    mask) and the plain chain without the guard's selects (the JAX
+    package's unguarded eq. 4), bitwise, and each timed alone. Each pair is timed in
     turns. Also times the stale merge of two full-width updates."""
     rng = np.random.default_rng(1)
     parts = [i for i, (_, y) in enumerate(runner.client_data) if len(y) >= 2][:5]
@@ -937,9 +959,11 @@ def genfv_poisoned_step(runner, engine, device):
     poisoned = list(bis)
     poisoned[bad] = np.full_like(bis[bad], np.nan)
     ms, outs = _in_turns({
-        "poisoned": lambda: engine.run(g, poisoned, list(bls), rhos, emd_bar, aug, bucket=8),
+        "poisoned": lambda: engine.run(g, poisoned, list(bls), rhos, emd_bar, aug, bucket=8,
+                                       guard=True),
         "clean4": lambda: engine.run(g, [bis[i] for i in keep], [bls[i] for i in keep],
-                                     rhos[keep] / rhos[keep].sum(), emd_bar, aug, bucket=8)},
+                                     rhos[keep] / rhos[keep].sum(), emd_bar, aug, bucket=8,
+                                     guard=True)},
         device)
     finite = outs["poisoned"][2].tolist()
     require(finite == [i != bad for i in range(len(parts))],
@@ -951,28 +975,31 @@ def genfv_poisoned_step(runner, engine, device):
 
     captured = []
 
-    def unguarded_step():
-        def eq4(stacked, *args, **kw):
-            captured[:] = [(stacked, args, kw)]
-            return _unguarded_eq4(stacked, *args, **kw)
-        fleet_mod.aggregate_stacked_guarded = eq4
-        try:
-            return engine.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=8)
-        finally:
-            fleet_mod.aggregate_stacked_guarded = aggregate_stacked_guarded
-    ms_clean, outs_clean = _in_turns({
-        "guarded": lambda: engine.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=8),
-        "unguarded": unguarded_step}, device)
+    def capture(stacked, *args, guard, **kw):
+        captured[:] = [(stacked, args, kw)]
+        return aggregate_stacked_guarded(stacked, *args, guard=guard, **kw)
+    fleet_mod.aggregate_stacked_guarded = capture
+    try:
+        ms_clean, outs_clean = _in_turns({
+            "guarded": lambda: engine.run(g, list(bis), list(bls), rhos, emd_bar, aug, bucket=8,
+                                          guard=True),
+            "unguarded": lambda: engine.run(g, list(bis), list(bls), rhos, emd_bar, aug,
+                                            bucket=8, guard=False)}, device)
+    finally:
+        fleet_mod.aggregate_stacked_guarded = aggregate_stacked_guarded
     require(outs_clean["guarded"][2].all(), "clean fleet step: a vehicle was rejected")
     d_clean = float((_flat(outs_clean["guarded"][0])
                      - _flat(outs_clean["unguarded"][0])).abs().max())
     require(d_clean <= BUCKET_TOL,
             f"clean fleet step: guarded vs unguarded eq. 4 {d_clean:.3e} > {BUCKET_TOL}")
     stacked, args, kw = captured[0]
-    eq4 = {"guarded": lambda: aggregate_stacked_guarded(stacked, *args, **kw),
-           "unguarded": lambda: _unguarded_eq4(stacked, *args, **kw)}
-    require(torch.equal(eq4["guarded"]()[0], eq4["unguarded"]()[0]),
+    eq4 = {"guarded": lambda: aggregate_stacked_guarded(stacked, *args, guard=True, **kw),
+           "unguarded": lambda: aggregate_stacked_guarded(stacked, *args, guard=False, **kw),
+           "plain": lambda: _unguarded_eq4(stacked, *args, **kw)}
+    outs_eq4 = [fn()[0] for fn in eq4.values()]
+    require(all(torch.equal(outs_eq4[0], o) for o in outs_eq4[1:]),
             "eq. 4 on the clean stacked buffer: the guard changed a bit")
+    del outs_eq4
     eq4_ms = {name: time_ms(fn, device) for name, fn in eq4.items()}
     del captured, stacked
     stale = [tree_map(lambda x: x + 1e-3, g), tree_map(lambda x: x - 1e-3, g)]
@@ -981,7 +1008,7 @@ def genfv_poisoned_step(runner, engine, device):
            "poisoned_vs_clean4_max_abs": d, "guarded_step_ms": ms_clean["guarded"],
            "unguarded_step_ms": ms_clean["unguarded"], "guarded_vs_unguarded_max_abs": d_clean,
            "eq4_guarded_ms": eq4_ms["guarded"], "eq4_unguarded_ms": eq4_ms["unguarded"],
-           "stale_merge_ms": merge_ms}
+           "eq4_plain_ms": eq4_ms["plain"], "stale_merge_ms": merge_ms}
     print(f"genfv poisoned fleet step (K=5, bucket 8, vehicle {bad} poisoned): finite {finite}; "
           f"aggregate vs the clean four renormalised max |delta| {d:.3e} (tol {BUCKET_TOL}); "
           f"poisoned {ms['poisoned'][0]:.2f}/{ms['poisoned'][1]:.2f} ms, clean four "
@@ -990,7 +1017,8 @@ def genfv_poisoned_step(runner, engine, device):
           f"{d_clean:.3e} (tol {BUCKET_TOL}); step guarded {ms_clean['guarded'][0]:.2f}/"
           f"{ms_clean['guarded'][1]:.2f} ms, unguarded {ms_clean['unguarded'][0]:.2f}/"
           f"{ms_clean['unguarded'][1]:.2f} ms (in turns); eq. 4 alone on its [8, P] buffer "
-          f"guarded {eq4_ms['guarded']:.4f} ms, unguarded {eq4_ms['unguarded']:.4f} ms, "
+          f"guarded {eq4_ms['guarded']:.4f} ms, unguarded (all-true mask) "
+          f"{eq4_ms['unguarded']:.4f} ms, the plain chain {eq4_ms['plain']:.4f} ms, "
           f"bitwise equal; stale merge of 2 full-width updates {merge_ms:.4f} ms")
     return out
 
@@ -1107,6 +1135,8 @@ def genfv(device):
     genfv_faults(device)
     torch.cuda.empty_cache()
     genfv_ddpm(device)
+    torch.cuda.empty_cache()
+    genfv_stream_sweep(device)
 
 
 # ---------------------------------------------------------------------------
@@ -1142,10 +1172,10 @@ def _max_diff(trees):
 
 
 def genfv_pretraining(device):
-    """The runner's reference-pool pretraining on the card, twice with
-    cuDNN's default algorithms and twice with deterministic ones: ms, final
-    loss, and how far each pair's parameters lie apart (the deterministic
-    pair held bitwise)."""
+    """The runner's reference-pool pretraining on the card, twice with the
+    caller's cuDNN flags at their defaults and twice set deterministic: ms,
+    final loss, and how far each pair's parameters lie apart (both held
+    bitwise: pretrain_ddpm scopes deterministic cuDNN itself)."""
     ddpm = gen_service.runner_ddpm(10)
     kw = dict(steps=gen_service.PRETRAIN_STEPS, ref_size=gen_service.PRETRAIN_REF,
               seed=gen_service.PRETRAIN_SEED, device=device)
@@ -1166,17 +1196,17 @@ def genfv_pretraining(device):
         out[f"pretrain_{name}_twice_bitwise"] = out[f"pretrain_{name}_twice_max_abs"] == 0.0
     require(all(math.isfinite(x) for v in runs.values() for r in v for x in r[1]),
             "pretraining: non-finite loss")
-    # any process reconstructs the pretrained generator: on the card only
-    # under deterministic cuDNN (the default weight gradient is not)
-    require(out["pretrain_deterministic_twice_bitwise"],
-            "deterministic cuDNN: two pretrainings differ")
+    # any process reconstructs the pretrained generator: pretrain_ddpm runs
+    # under deterministic cuDNN whatever flags its caller set
+    require(out["pretrain_deterministic_twice_bitwise"] and out["pretrain_default_twice_bitwise"],
+            "two pretrainings differ")
     print(f"genfv ddpm pretraining ({ddpm.timesteps} timesteps, base {ddpm.base_width}, "
           f"{kw['steps']} steps on {kw['ref_size']} images): "
           f"{', '.join(f'{x:.2f}' for x in out['pretrain_ms'])} ms (default, default, "
           f"deterministic, deterministic); loss {out['pretrain_first_loss']:.4f} -> "
           f"{out['pretrain_final_loss']:.4f}; two pretrainings apart by "
-          f"{out['pretrain_default_twice_max_abs']:.3e} (default cuDNN), "
-          f"{out['pretrain_deterministic_twice_max_abs']:.3e} (deterministic cuDNN)")
+          f"{out['pretrain_default_twice_max_abs']:.3e} (caller's cuDNN default), "
+          f"{out['pretrain_deterministic_twice_max_abs']:.3e} (caller's cuDNN deterministic)")
     return out, runs["default"][0][0]
 
 
@@ -1390,6 +1420,354 @@ def genfv_ddpm(device):
     print(f"genfv ddpm: phase {phase_s:.1f} s; hand-written kernel launches 0 (the path runs none)")
     print(json.dumps({"genfv_ddpm": {**pre, **full, "sampler": throughput, "invariance": inv,
                                      "card_vs_cpu": cpu_vs_card, "phase_s": phase_s}}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 6, continued: the streaming RSU and the experiment layer
+# ---------------------------------------------------------------------------
+# benchmarks/bench_stream.py's STREAM policy on its second headline pair
+# (rush_hour + rush_hour_deep_fade), at full width on CIFAR-10's training
+# size; 1,000 test images instead of 10,000 to keep the phase short, as
+# genfv_faults cuts.
+STREAM_POLICY = dict(quorum=0.6, cadence_s=0.1, deadline_slack=0.25, retry_budget=2)
+GENFV_STREAM = dict(width_mult=1.0, train_size=50_000, test_size=1_000, rounds=3,
+                    scenario="rush_hour", faults="rush_hour_deep_fade")
+# The same pair at bench_stream's quick size, card against CPU; the numpy
+# planner on both, so that the schedule is the host's on both.
+STREAM_QUICK = dict(rounds=3, train_size=300, test_size=32, width_mult=0.0625,
+                    scenario="rush_hour", faults="rush_hour_deep_fade", planner="numpy")
+SMALL_FLEET = dict(batch_size=8, local_steps=2, num_vehicles=6)
+# The full-width sweep: every registered scenario, 2 rounds, 1,000 test images.
+SWEEP_SCENARIOS = ("highway_free_flow", "rush_hour", "urban_stop_go", "platoon", "sparse_rural")
+GENFV_SWEEP = dict(width_mult=1.0, train_size=50_000, test_size=1_000, rounds=2)
+# Sweep == per-cell, bitwise under deterministic cuDNN: two strategies of
+# one scenario, which plan in one batched dispatch of 2 a round.
+SWEEP_HOLD = dict(width_mult=0.25, rounds=2)
+STAGES = ("stream/tick", "stream/retry", "stream/commit", "round/plan", "round/generate",
+          "round/local_sgd", "round/aggregate", "round/world_step", "round/eval")
+
+
+def _tree_bytes(tree):
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def stream_full_width(device, datasets):
+    """D1: GENFV_STREAM through StreamEngine under STREAM_POLICY, traced by
+    Obs, with cuDNN's default algorithms: per round the ladder rung, the
+    quorum, the in-flight merges, late uploads and retries, span ms by
+    stage, the in-flight queue's bytes on the card and peak memory."""
+    obs = Obs(meta={"phase": "genfv_stream_sweep"})
+    t0 = time.perf_counter()
+    runner = GenFVRunner(RunConfig(**GENFV_STREAM), obs=obs, device=device, dataset_fn=datasets)
+    eng = StreamEngine(runner, StreamConfig(**STREAM_POLICY))
+    print(f"stream: width {runner.run.width_mult}, cifar10 {GENFV_STREAM['train_size']}/"
+          f"{GENFV_STREAM['test_size']} images, {GENFV_STREAM['scenario']} + "
+          f"{GENFV_STREAM['faults']}, {eng.scfg}; runner built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(device)
+    rounds = []
+    for t in range(GENFV_STREAM["rounds"]):
+        sync(device)
+        t0 = time.perf_counter()
+        log = eng.run_round(t)
+        sync(device)
+        round_ms = 1e3 * (time.perf_counter() - t0)
+        s = eng.slogs[-1]
+        spans = _round_spans(obs, t)
+        r = dict(vars(s), loss=log.loss, accuracy=log.accuracy, selected=log.selected,
+                 dropped=log.dropped, rejected=log.rejected, t_bar=log.t_bar, round_ms=round_ms,
+                 inflight=len(eng.inflight),
+                 inflight_mb=sum(_tree_bytes(e.params) for e in eng.inflight) / 1e6,
+                 peak_gib=torch.cuda.max_memory_allocated(device) / 2**30)
+        r.update({f"{n}_ms": spans[n][0] for n in STAGES if n in spans})
+        rounds.append(r)
+        print(f"stream round {t}: rung {s.rung}, quorum {s.arrived}/{s.quorum_target}, "
+              f"trained {log.selected}, dropped {log.dropped}, merged in-flight "
+              f"{s.merged_inflight}, gap-absorbed {s.gap_merged}, stale dropped "
+              f"{s.stale_dropped}, late {s.late}, retries {s.retries}, exhausted {s.exhausted}, "
+              f"commit at {s.t_commit - s.t_start:.4f} s of t_bar {log.t_bar:.4f} s; loss "
+              f"{log.loss:.4f}, accuracy {log.accuracy:.4f}; ms: "
+              + ", ".join(f"{n} {spans[n][0]:.2f}" for n in STAGES if n in spans)
+              + f", round {round_ms:.2f}; in flight {r['inflight']} updates, "
+              f"{r['inflight_mb']:.1f} MB on the card; peak {r['peak_gib']:.2f} GiB")
+        require(math.isfinite(log.loss) and 0.0 <= log.accuracy <= 1.0,
+                f"stream round {t}: loss {log.loss}, accuracy {log.accuracy}")
+    require(all(x.device == device for x in tree_leaves(runner.server.params))
+            and all(x.device == device for e in eng.inflight for x in tree_leaves(e.params)),
+            "stream: parameters or in-flight updates left the card")
+    require(bool(torch.isfinite(_flat(runner.server.params)).all()), "stream: non-finite global")
+    require(obs.open_spans == 0, "stream: open spans after the run")
+    require(obs.metrics.counter_value("stream/rounds") == GENFV_STREAM["rounds"],
+            "stream: the ledger did not reach Obs")
+    return rounds
+
+
+def stream_equals_sync(device, datasets):
+    """D2: fault-free, quorum 1.0, 2 rounds at full width, under
+    deterministic cuDNN: the stream's logs and parameters equal train()'s,
+    bitwise."""
+    run = RunConfig(**dict(GENFV_STREAM, rounds=2, faults=None))
+    with deterministic_cudnn():
+        sync_runner = GenFVRunner(run, device=device, dataset_fn=datasets)
+        want = sync_runner.train().logs
+        runner = GenFVRunner(run, device=device, dataset_fn=datasets)
+        eng = StreamEngine(runner, StreamConfig(quorum=1.0))
+        got = eng.run().logs
+    require(got == want and torch.equal(_flat(runner.server.params),
+                                        _flat(sync_runner.server.params)),
+            "deterministic cuDNN: the full-quorum stream differs from train()")
+    require(all(s.rung == 0 for s in eng.slogs), "stream == sync: a degraded rung")
+    print(f"stream == sync (full width, fault-free, quorum 1.0, {run.rounds} rounds, "
+          f"deterministic cuDNN): every RoundLog field and the parameters bitwise; "
+          f"selected {[l.selected for l in got]}")
+
+
+def stream_resume(device, datasets):
+    """D3: the GENFV_STREAM run under deterministic cuDNN, saved after
+    round 1 and resumed into a fresh engine: bitwise the uninterrupted
+    run."""
+    run, sc = RunConfig(**GENFV_STREAM), StreamConfig(**STREAM_POLICY)
+    path = str(CKPT_DIR / "stream.npz")
+    with deterministic_cudnn():
+        full = StreamEngine(GenFVRunner(run, device=device, dataset_fn=datasets), sc)
+        want = full.run(checkpoint_path=path, checkpoint_every=2).logs
+        resumed = StreamEngine(GenFVRunner(run, device=device, dataset_fn=datasets), sc)
+        t0 = time.perf_counter()
+        nxt = resumed.load_checkpoint(path)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        n_inflight = len(resumed.inflight)
+        require(nxt == 2 and all(x.device == device for e in resumed.inflight
+                                 for x in tree_leaves(e.params)),
+                f"stream resume: next round {nxt}, or in-flight updates off the card")
+        got = resumed.run().logs
+    size_mb = Path(path).stat().st_size / 1e6
+    Path(path).unlink()
+    require(got == want and resumed.slogs == full.slogs
+            and torch.equal(_flat(resumed.runner.server.params), _flat(full.runner.server.params)),
+            "deterministic cuDNN: the resumed stream differs from the uninterrupted one")
+    print(f"stream resume (deterministic cuDNN): checkpoint after round 1 with {n_inflight} "
+          f"in-flight updates, {size_mb:.1f} MB, load {load_ms:.2f} ms; round 2 from it: "
+          f"every RoundLog and StreamLog field and the parameters bitwise")
+    return {"checkpoint_mb": size_mb, "inflight_at_checkpoint": n_inflight, "load_ms": load_ms}
+
+
+def stream_card_matches_cpu(device):
+    """D4: STREAM_QUICK on the card and on the CPU, each round from the
+    CPU's round-start parameters (the in-flight queues are each engine's
+    own): StreamLog and the RoundLog integers equal, parameters within
+    GENFV_PARAM_TOL."""
+    cpu = torch.device("cpu")
+    engines = {d: StreamEngine(GenFVRunner(RunConfig(**STREAM_QUICK),
+                                           fl_cfg=GenFVConfig(**SMALL_FLEET), device=d),
+                               StreamConfig(**STREAM_POLICY)) for d in (cpu, device)}
+    worst = 0.0
+    for t in range(STREAM_QUICK["rounds"]):
+        engines[device].runner.server.params = tree_map(
+            lambda x: x.to(device), engines[cpu].runner.server.params)
+        logs = {d: e.run_round(t) for d, e in engines.items()}
+        for f in LEDGER_INTS + ("t_bar", "t_round"):
+            require(getattr(logs[cpu], f) == getattr(logs[device], f),
+                    f"stream card vs CPU round {t}: {f} differs")
+        require(vars(engines[cpu].slogs[-1]) == vars(engines[device].slogs[-1]),
+                f"stream card vs CPU round {t}: StreamLog differs")
+        d = float((_flat(engines[device].runner.server.params).cpu()
+                   - _flat(engines[cpu].runner.server.params)).abs().max())
+        require(d <= GENFV_PARAM_TOL, f"stream card vs CPU round {t}: params {d:.3e}")
+        worst = max(worst, d)
+    slogs = engines[device].slogs
+    print(f"stream card == CPU (rush_hour + rush_hour_deep_fade, quick size, "
+          f"{len(slogs)} rounds): StreamLog and RoundLog integers equal (rungs "
+          f"{[s.rung for s in slogs]}, retries {sum(s.retries for s in slogs)}, merged "
+          f"{sum(s.merged_inflight + s.gap_merged for s in slogs)}); params within {worst:.3e} "
+          f"(tol {GENFV_PARAM_TOL})")
+    return worst
+
+
+def _same_plan(a, b):
+    return (np.array_equal(a.alpha, b.alpha) and a.selected == b.selected
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in ("l", "phi", "t_mu", "e_total"))
+            and (a.b_gen, a.t_bar, a.t_rsu, a.bcd_iters, a.converged)
+            == (b.b_gen, b.t_bar, b.t_rsu, b.bcd_iters, b.converged))
+
+
+def _timed(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def sweep_full_width(device):
+    """D5: the five scenarios at full width through Sweep (2 rounds, cuDNN
+    defaults), traced by Obs; every batched planner dispatch recorded and
+    re-planned one fleet at a time (bitwise the same plans), and each
+    round's fleets batched under one configuration against one by one;
+    then Theorem 1's per-scenario table."""
+    spec = ExperimentSpec(name="chip_sweep", scenarios=SWEEP_SCENARIOS,
+                          base=RunConfig(**GENFV_SWEEP))
+    calls = []
+
+    def recording(cfg, fleets, model_bits, **kw):
+        plans, ms = _timed(lambda: plan_rounds_batched(cfg, fleets, model_bits, **kw), device)
+        calls.append((cfg, fleets, model_bits, kw, plans, ms))
+        return plans
+    obs = Obs(meta={"phase": "genfv_stream_sweep/sweep"})
+    sweep_mod.plan_rounds_batched = recording
+    try:
+        result, total_ms = _timed(lambda: Sweep(spec, obs=obs, device=device).run(), device)
+    finally:
+        sweep_mod.plan_rounds_batched = plan_rounds_batched
+    rounds = []
+    for t in range(GENFV_SWEEP["rounds"]):
+        ev = [e for e in obs.events if e["ph"] == "X" and e["tags"].get("round") == t]
+        batched = [c for c, e in zip(calls, [e for e in obs.events
+                                             if e["name"] == "sweep/plan_batched"])
+                   if e["tags"]["round"] == t]
+        single_ms = 0.0
+        for cfg, fleets, model_bits, kw, plans, _ in batched:
+            for i, fleet in enumerate(fleets):
+                one, ms = _timed(lambda: plan_round(
+                    cfg, fleet, model_bits, kw["batches"], b_prev=kw["b_prevs"][i],
+                    svc=kw["svc"], alpha_override=kw["alpha_overrides"][i], planner="torch",
+                    device=device), device)
+                require(_same_plan(one, plans[i]),
+                        f"sweep round {t}: a batched plan differs from the single one")
+                single_ms += ms
+        cfg0, _, model_bits0, kw0, _, _ = batched[0]
+        fleets = [f for c in batched for f in c[1]]
+        alphas = [a for c in batched for a in c[3]["alpha_overrides"]]
+        b_prevs = [b for c in batched for b in c[3]["b_prevs"]]
+        one_cfg, one_cfg_ms = _timed(lambda: plan_rounds_batched(
+            cfg0, fleets, model_bits0, batches=kw0["batches"], b_prevs=b_prevs,
+            alpha_overrides=alphas, device=device), device)
+        one_by_one_ms = 0.0
+        for i, fleet in enumerate(fleets):
+            one, ms = _timed(lambda: plan_round(
+                cfg0, fleet, model_bits0, kw0["batches"], b_prev=b_prevs[i],
+                alpha_override=alphas[i], planner="torch", device=device), device)
+            require(_same_plan(one, one_cfg[i]), f"sweep round {t}: one-config batch differs")
+            one_by_one_ms += ms
+        r = {"round": t, "lockstep_ms": 1e3 * (max(e["ts"] + e["dur"] for e in ev)
+                                                - min(e["ts"] for e in ev)),
+             "dispatches": len(batched), "batched_plan_ms": sum(c[5] for c in batched),
+             "single_plan_ms": single_ms, "one_config_fleets": len(fleets),
+             "one_config_batched_ms": one_cfg_ms, "one_config_single_ms": one_by_one_ms}
+        rounds.append(r)
+        print(f"sweep round {t}: {len(SWEEP_SCENARIOS)} cells in lockstep {r['lockstep_ms']:.2f} "
+              f"ms; {r['dispatches']} planner dispatches (batches "
+              f"{[len(c[1]) for c in batched]}) {r['batched_plan_ms']:.2f} ms, the same fleets "
+              f"one by one {single_ms:.2f} ms, plans bitwise equal; the round's "
+              f"{len(fleets)} fleets under one configuration: batched {one_cfg_ms:.2f} ms, one "
+              f"by one {one_by_one_ms:.2f} ms")
+    meta = result.meta
+    require(list(result.rounds) == [GENFV_SWEEP["rounds"]] * len(SWEEP_SCENARIOS)
+            and bool(np.isfinite(result.metrics["loss"]).all()),
+            "sweep: a cell did not finish or its loss is not finite")
+    require(meta["dataset_builds"] == 2 and meta["engines"] == 1,
+            f"sweep: dataset builds {meta['dataset_builds']}, engines {meta['engines']}")
+    report = theorem1_comparison(result)
+    print(f"sweep (full width, {spec.n_cells} cells, {GENFV_SWEEP['rounds']} rounds): "
+          f"{meta['planner_dispatches']} planner dispatches, largest batch "
+          f"{meta['planner_largest_batch']}, {meta['dataset_builds']} dataset builds, "
+          f"{meta['engines']} fleet engine; {total_ms:.2f} ms in all; final accuracy "
+          f"{[round(float(x), 4) for x in result.final('accuracy')]}")
+    print("Theorem 1 per scenario (sweep above):\n" + report.to_markdown())
+    return {"rounds": rounds, "total_ms": total_ms, "meta": meta,
+            "theorem1": report.per_scenario()}
+
+
+def sweep_equals_cells(device):
+    """D5, continued: a 2-cell, 2-round grid at width 0.25 under
+    deterministic cuDNN: Sweep's metrics equal each cell run alone,
+    bitwise, with one batched planner dispatch of 2 a round."""
+    spec = ExperimentSpec(name="chip_hold", strategies=("genfv", "fedavg"),
+                          base=RunConfig(**SWEEP_HOLD))
+    with deterministic_cudnn():
+        result = Sweep(spec, device=device).run()
+        singles = [GenFVRunner(c.run, device=device).train() for c in spec.expand()]
+    for c, single in zip(spec.expand(), singles):
+        for key in ("loss", "accuracy", "t_bar", "selected", "b_gen", "kappa2", "bcd_iters"):
+            require(np.array_equal(result.metrics[key][c.index], single.curve(key)),
+                    f"deterministic cuDNN: sweep != cell {c.strategy} on {key}")
+    require(result.meta["planner_dispatches"] == SWEEP_HOLD["rounds"]
+            and result.meta["planner_largest_batch"] == 2,
+            f"sweep hold: dispatches {result.meta['planner_dispatches']}")
+    print(f"sweep == per cell (width {SWEEP_HOLD['width_mult']}, {spec.n_cells} cells, "
+          f"{SWEEP_HOLD['rounds']} rounds, deterministic cuDNN): metrics bitwise, "
+          f"{result.meta['planner_dispatches']} dispatches of 2")
+
+
+def divergence_kept(device):
+    """D6: a fault-free run whose vehicles diverge (CLIENT_LR 1e12) on both
+    paths: no update rejected, the global non-finite on each."""
+    kw = dict(rounds=1, train_size=400, test_size=64, strategy="fl_only", planner="numpy")
+    saved = rounds_mod.CLIENT_LR
+    rounds_mod.CLIENT_LR = 1e12
+    try:
+        logs = {}
+        for vec in (True, False):
+            r = GenFVRunner(RunConfig(vectorized=vec, **kw), fl_cfg=GenFVConfig(**SMALL_FLEET),
+                            device=device)
+            (log,) = r.train().logs
+            finite = bool(torch.isfinite(_flat(r.server.params)).all())
+            require(log.rejected == 0 and not finite,
+                    f"divergence (vectorized={vec}): rejected {log.rejected}, finite {finite}")
+            logs[vec] = log
+    finally:
+        rounds_mod.CLIENT_LR = saved
+    require(all(getattr(logs[True], f) == getattr(logs[False], f) for f in LEDGER_INTS),
+            "divergence: the two paths' ledgers differ")
+    print(f"fault-free divergence (CLIENT_LR 1e12, both paths): rejected 0, global non-finite, "
+          f"loss {logs[True].loss} / {logs[False].loss} (vectorized / sequential)")
+
+
+def pretraining_pure(device):
+    """D7: two pretrainings under the process's cuDNN flags, bitwise, and
+    the flags as they were."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic, cudnn.benchmark
+    ddpm = gen_service.runner_ddpm(10)
+    kw = dict(steps=gen_service.PRETRAIN_STEPS, ref_size=gen_service.PRETRAIN_REF,
+              seed=gen_service.PRETRAIN_SEED, device=device)
+    (a, _), ms_a = _timed(lambda: pretrain_ddpm(ddpm, **kw), device)
+    (b, _), ms_b = _timed(lambda: pretrain_ddpm(ddpm, **kw), device)
+    d = _max_diff((a, b))
+    require(d == 0.0, f"pretraining under the process's cuDNN flags: {d:.3e} apart")
+    require((cudnn.deterministic, cudnn.benchmark) == before, "pretraining left cuDNN flags changed")
+    print(f"pretraining under the process's cuDNN flags (deterministic, benchmark = {before}): "
+          f"twice bitwise, {ms_a:.2f} and {ms_b:.2f} ms; flags the same after")
+    return [ms_a, ms_b]
+
+
+def genfv_stream_sweep(device):
+    """Phase genfv_stream_sweep: D1-D7."""
+    t_start = time.perf_counter()
+    print(f"genfv_stream_sweep on {card()}")
+    ops.flash_attention.launches = 0
+    ops.rglru_scan.launches = 0
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    datasets = sweep_mod._DatasetCache()
+    stream = stream_full_width(device, datasets)
+    torch.cuda.empty_cache()
+    stream_equals_sync(device, datasets)
+    resume = stream_resume(device, datasets)
+    del datasets
+    torch.cuda.empty_cache()
+    cpu_worst = stream_card_matches_cpu(device)
+    sweep = sweep_full_width(device)
+    torch.cuda.empty_cache()
+    sweep_equals_cells(device)
+    divergence_kept(device)
+    pretrain_ms = pretraining_pure(device)
+    require(ops.flash_attention.launches == 0 and ops.rglru_scan.launches == 0,
+            "the streaming or sweep path launched a serving kernel")
+    phase_s = time.perf_counter() - t_start
+    print(f"genfv_stream_sweep: phase {phase_s:.1f} s; hand-written kernel launches 0")
+    print(json.dumps({"genfv_stream_sweep": {
+        "card": card(), "stream_rounds": stream, "resume": resume,
+        "stream_card_vs_cpu_params_max_abs": cpu_worst, "sweep": sweep,
+        "pretrain_ms": pretrain_ms, "phase_s": phase_s}}))
 
 
 # ---------------------------------------------------------------------------

@@ -183,9 +183,9 @@ class ModelConfig:
 @dataclass(frozen=True)
 class StreamConfig:
     """Quorum / retry / cadence policy for the event-driven streaming round
-    engine (the JAX package's `fl/stream.py`;
-    the port's streaming engine is later work). Frozen + flat so it rides inside
-    the frozen `RunConfig` (hashable grid cells, JSON-able checkpoints).
+    engine (fl/stream.py, the JAX package's `fl/stream.py`). Frozen + flat
+    so it rides inside the frozen `RunConfig` (hashable grid cells,
+    JSON-able checkpoints).
 
     The defaults reproduce the synchronous round loop exactly: quorum=1.0
     commits on the last planned upload, cadence 0 fires rounds back-to-back,

@@ -108,7 +108,7 @@ def tree_finite(tree) -> bool:
 
 def aggregate_stacked_guarded(stacked: torch.Tensor, weights: Sequence[float],
                               aug: torch.Tensor, aug_weight: float,
-                              fallback: torch.Tensor):
+                              fallback: torch.Tensor, *, guard: bool):
     """Eq. (4) on the device over flat parameter buffers, with a
     per-client finiteness guard. `stacked` [K, P] holds the K clients'
     models, `weights` [K] are kappa1 * rho_n (zero on padded slots, float32
@@ -130,12 +130,17 @@ def aggregate_stacked_guarded(stacked: torch.Tensor, weights: Sequence[float],
     is written out: zero-weight padded slots add exact zeros and the
     aggregate does not depend on the bucket the fleet was padded to. On
     finite rows s_fin == s_all, scale is exactly 1.0 and the result is the
-    bits of the JAX package's unguarded `aggregate_stacked`."""
+    bits of the JAX package's unguarded `aggregate_stacked`.
+
+    With `guard=False` the mask is all true, so the same chain is the
+    unguarded eq. 4: a non-finite row reaches the aggregate, as in the JAX
+    package's `aggregate_stacked`."""
     if stacked.dim() != 2 or stacked.shape[0] != len(weights):
         raise ValueError(f"stacked {tuple(stacked.shape)} against "
                          f"{len(weights)} weights")
     s32 = stacked.float()
-    finite = torch.isfinite(s32).all(dim=1)
+    finite = (torch.isfinite(s32).all(dim=1) if guard else
+              torch.ones(len(weights), dtype=torch.bool, device=stacked.device))
     wt = torch.tensor(np.asarray(weights, np.float32), device=stacked.device)
     w = wt * finite
     s_all, s_fin = wt[0], w[0]
@@ -151,3 +156,8 @@ def aggregate_stacked_guarded(stacked: torch.Tensor, weights: Sequence[float],
     fed = torch.where(kept, fed * scale, s_all * fallback.float())
     out = fed + _f32(aug_weight) * aug.float()
     return out.to(stacked.dtype), finite
+
+
+def lambda_bound(emd_n: float, g_n: float) -> float:
+    """Eq. (3): gradient-divergence bound lambda_n <= EMD_n * g_n."""
+    return emd_n * g_n

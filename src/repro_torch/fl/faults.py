@@ -230,8 +230,7 @@ def realized_arrivals(cfg: GenFVConfig, fleet: Sequence, plan,
                       t: int, *, retry_budget: int, backoff_s: float,
                       backoff_cap_s: float
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Streaming-mode realization (the JAX package's fl/stream.py, not
-    ported yet): per-selected ABSOLUTE
+    """Streaming-mode realization (fl/stream.py): per-selected ABSOLUTE
     upload-completion offsets from the round start, with retry/backoff for
     outaged uploads.
 

@@ -8,12 +8,13 @@ aggregation follows over the stacked flat parameter buffers [K, P]
 (core/emd.py::aggregate_stacked_guarded, a fixed-order chain). Under vmap
 each convolution runs once for all K vehicles, as a grouped convolution.
 
-The aggregation always runs finiteness-guarded: it rejects the rows of
-poisoned updates (fl/faults.py) and falls back to the round-start global
-when every row is rejected. On finite rows the guard changes no bit, so a
-clean fleet gets the unguarded eq. 4's result. (The JAX package keeps an
-unguarded program for clean fleets because the guard compiles to a
-different XLA program; here the fleet SGD runs the same code either way.)
+With `guard=True` (the round loop asks for it when a poisoned batch is in
+the step, as the JAX package does) the aggregation rejects the rows of
+non-finite updates (fl/faults.py) and falls back to the round-start global
+when every row is rejected. With `guard=False` the finite mask is all
+true, so a vehicle that diverges on its own reaches the aggregate, as in
+the JAX package's unguarded step. Both run the one chain: on finite rows
+the guard changes no bit.
 
 Fleet-size bucketing: K is padded up to the power-of-two bucket >= 4 that
 the planner shares; padded slots train on all-zero batches (finite work)
@@ -57,7 +58,8 @@ class FleetEngine:
     # ----------------------------------------------------------------------
     def run(self, global_params, imgs_list: List, labels_list: List,
             rhos: Sequence[float], emd_bar: float = 0.0, aug_params=None,
-            prox_mu: float = 0.0, bucket: int | None = None) -> Tuple:
+            prox_mu: float = 0.0, bucket: int | None = None, *,
+            guard: bool) -> Tuple:
         """Train all K vehicles and aggregate, on the device the global
         parameters lie on.
 
@@ -65,7 +67,8 @@ class FleetEngine:
         [h,B], numpy); rhos: data weights over the K vehicles; aug_params:
         the RSU-augmented model (None -> plain weighted FedAvg, kappa2 = 0).
         Returns (new global parameter tree, mean loss per vehicle [K],
-        finite mask [K]: which vehicles' updates eq. 4 kept, numpy bool)."""
+        finite mask [K]: which vehicles' updates eq. 4 kept, numpy bool;
+        all true when `guard` is off)."""
         k = len(imgs_list)
         if k == 0:
             raise ValueError("FleetEngine.run needs at least one vehicle")
@@ -100,7 +103,8 @@ class FleetEngine:
 
         stacked, losses = vmap(one_vehicle)(imgs, labels)
         new_flat, finite = aggregate_stacked_guarded(
-            stacked, weights, aug, np.float32(k2), fallback=flat)
+            stacked, weights, aug, np.float32(k2), fallback=flat,
+            guard=guard)
         return (spec.unflatten(new_flat),
                 losses[:k].cpu().numpy().mean(axis=1),
                 finite[:k].cpu().numpy())

@@ -22,14 +22,16 @@ with the reference bit for bit; fault draws are round-keyed
 from a torch generator and cannot (`convert.from_jax_cnn_params` carries
 the reference's over). `generator="ddpm"` samples each round's SUBP4
 schedule with the pretrained DDPM (repro_torch.gen) and prices eq. 48 with
-its measured per-image time. Streaming has no entry point here.
+its measured per-image time. The event-driven streaming engine
+(fl/stream.py) drives the same `_execute_round` body, and experiment
+sweeps (repro_torch.exp) inject a shared fleet engine and dataset cache.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import List
+from typing import Callable, List
 
 import numpy as np
 import torch
@@ -92,8 +94,9 @@ def validate_run_fields(strategy: str, scenario: str, planner: str,
             f"{', '.join(scenario_names())} (or {LEGACY!r} for the "
             f"memoryless sampler)")
     if planner not in PLANNERS:
+        # names quoted, so the JAX package's "jax" is refused naming "torch"
         raise ValueError(f"unknown planner {planner!r}; valid: "
-                         f"{', '.join(PLANNERS)}")
+                         f"{', '.join(map(repr, PLANNERS))}")
     if dataset not in DATASET_CLASSES:
         raise ValueError(f"unknown dataset {dataset!r}; valid: "
                          f"{', '.join(DATASET_CLASSES)}")
@@ -217,14 +220,18 @@ class GenFVRunner:
     still apply); `generator` replaces the AIGC service `run.generator`
     names and `svc` the service eq. 48 is priced with; `faults`, a
     `FaultSpec`, overrides `run.faults`'s registered schedule; `obs`
-    overrides `run.obs`."""
+    overrides `run.obs`. `engine` is a shared `FleetEngine` (it must match
+    this run's model shape) and `dataset_fn` replaces
+    `make_image_dataset` (a sweep's exact cache of the same builds)."""
     #: manifest schema of `save_checkpoint` (the layout of the JAX
     #: package's runner-ckpt/v4, with the port's parameter tree)
     CKPT_SCHEMA = "repro_torch.fl/runner-ckpt/v4"
 
     def __init__(self, run: RunConfig, fl_cfg: GenFVConfig | None = None,
-                 generator=None, faults: FaultSpec | None = None, obs=None,
-                 svc=None, device="cuda"):
+                 generator=None, engine: FleetEngine | None = None,
+                 dataset_fn: Callable | None = None,
+                 faults: FaultSpec | None = None, obs=None, svc=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.run = run
         self.obs = obs if obs is not None else (
@@ -238,9 +245,9 @@ class GenFVRunner:
         self.cnn_cfg: CNNConfig = cnn_config(run.dataset, run.width_mult)
         classes = DATASET_CLASSES[run.dataset]
 
-        imgs, labels = make_image_dataset(run.dataset, run.train_size,
-                                          seed=run.seed)
-        self.test_imgs, self.test_labels = make_image_dataset(
+        dataset_fn = dataset_fn or make_image_dataset
+        imgs, labels = dataset_fn(run.dataset, run.train_size, seed=run.seed)
+        self.test_imgs, self.test_labels = dataset_fn(
             run.dataset, run.test_size, seed=eval_stream_seed(run.seed))
         parts = dirichlet_partition(labels, self.cfg.num_vehicles, run.alpha,
                                     self.rng)
@@ -277,8 +284,20 @@ class GenFVRunner:
             else:
                 generator = OracleGenerator(run.dataset)
         self.server = GenFVServer(self.cnn_cfg, params, generator, self.rng)
-        self.engine = FleetEngine(self.cnn_cfg, self.cfg.local_steps,
-                                  self.cfg.batch_size, lr=CLIENT_LR)
+        if engine is not None:
+            if (engine.cfg != self.cnn_cfg or engine.h != self.cfg.local_steps
+                    or engine.batch_size != self.cfg.batch_size
+                    or engine.lr != CLIENT_LR):
+                raise ValueError(
+                    "injected FleetEngine does not match this run's model "
+                    f"shape: engine=({engine.cfg.name}, h={engine.h}, "
+                    f"B={engine.batch_size}, lr={engine.lr}) vs run="
+                    f"({self.cnn_cfg.name}, h={self.cfg.local_steps}, "
+                    f"B={self.cfg.batch_size}, lr={CLIENT_LR})")
+            self.engine = engine
+        else:
+            self.engine = FleetEngine(self.cnn_cfg, self.cfg.local_steps,
+                                      self.cfg.batch_size, lr=CLIENT_LR)
         self.classes = classes
         self.b_prev = 0
         # fault tolerance (dormant without a spec)
@@ -416,18 +435,28 @@ class GenFVRunner:
                        rf, late_mask, t_round: float, survive,
                        stale_models: List, stale_weights: List[float],
                        stale_emds: List[float], stale_dropped: int = 0,
-                       guard_host: bool = False) -> RoundLog:
+                       late_sink: Callable | None = None, skip_mask=None,
+                       guard_host: bool = False,
+                       dt_floor: float = 0.0) -> RoundLog:
         """Execute one planned round: generation and omega_a, local
-        training, eq. 4 with the stale merge, world step, evaluation.
+        training, eq. 4 with the stale merge, world step, evaluation. The
+        synchronous loop (`finish_round`) and the streaming engine
+        (fl/stream.py) both drive this body.
 
         `late_mask` marks selected positions that missed the deadline: they
-        train outside the fleet step and go to the stale buffer.
+        train outside the fleet step and go to `late_sink(entry, pos)`
+        (default: the stale buffer; the streaming engine's in-flight queue).
+        `skip_mask` marks positions whose upload can never arrive (retry
+        budget exhausted): dropped without drawing from the RNG.
         `stale_weights` are the already-discounted size weights of
         `stale_models`. `guard_host` turns on the sequential path's
-        host-side finiteness checks."""
+        host-side finiteness checks. `dt_floor` floors the world step (the
+        streaming cadence)."""
         run, cfg, t = self.run, self.cfg, pending.t
         fleet, parts = pending.fleet, pending.parts
         self.b_prev = plan.b_gen
+        if late_sink is None:
+            late_sink = lambda entry, pos: self.stale.push(entry)  # noqa: E731
 
         dropped = 0
         use_aigc = run.strategy in ("genfv", "aigc_only")
@@ -475,6 +504,9 @@ class GenFVRunner:
                         dropped += 1   # forced exit: the update never arrives
                         forced_out.append(fleet[j].vid)
                         continue
+                    if skip_mask is not None and skip_mask[pos]:
+                        dropped += 1   # retry budget exhausted (streaming)
+                        continue
                     v = fleet[j]
                     di, dl = self.client_data[parts[j]]
                     if len(dl) < 2:
@@ -499,8 +531,8 @@ class GenFVRunner:
                                     labels_to_device(bl, self.device),
                                     cfg.local_steps, CLIENT_LR, prox_mu)
                                 late_models.append(m)
-                                self.stale.push(StaleEntry(
-                                    m, v.data_size, v.emd, t, v.vid))
+                                late_sink(StaleEntry(
+                                    m, v.data_size, v.emd, t, v.vid), pos)
                             continue
                         if is_poisoned:
                             # NaN batches corrupt the update inside the
@@ -520,8 +552,8 @@ class GenFVRunner:
                         if is_late:
                             late += 1
                             if tree_finite(m):
-                                self.stale.push(StaleEntry(
-                                    m, v.data_size, v.emd, t, v.vid))
+                                late_sink(StaleEntry(
+                                    m, v.data_size, v.emd, t, v.vid), pos)
                             else:
                                 rejected += 1
                             continue
@@ -554,8 +586,11 @@ class GenFVRunner:
                                guard=int(agg_guard),
                                stale=stale_merged) as sp:
                 if run.vectorized and bimgs:
-                    # eq. 4 always runs guarded (neutral on finite rows);
-                    # stale merges take joint fresh + stale weights
+                    # eq. 4 runs guarded iff a poisoned batch is in the step,
+                    # as in the JAX package: a vehicle that diverges on its
+                    # own reaches the aggregate. Unguarded, the mask is all
+                    # true (and the chain the same bits on finite rows).
+                    # Stale merges take joint fresh + stale weights
                     rhos = kappa_emds = None
                     if stale_models:
                         all_sizes = np.asarray(
@@ -565,7 +600,8 @@ class GenFVRunner:
                         kappa_emds = memds + stale_emds
                     _, (k1, k2), losses, finite = self.server.fleet_round(
                         self.engine, bimgs, blabels, msizes, memds,
-                        aug if use_aigc else None, prox_mu, rhos=rhos,
+                        aug if use_aigc else None, prox_mu,
+                        guard=bool(n_poison), rhos=rhos,
                         kappa_emds=kappa_emds)
                     rejected += int((~finite).sum())
                     loss = float(losses[finite].mean()) \
@@ -607,7 +643,8 @@ class GenFVRunner:
                     # RNG drawn, so a benign spec leaves the stream as is)
                     self.world.remove(forced_out)
                 t_rsu = plan.t_rsu if use_aigc else 0.0
-                dt = max(t_round, t_rsu) if plan.selected else cfg.t_max
+                dt = max(t_round, t_rsu, dt_floor) if plan.selected \
+                    else max(cfg.t_max, dt_floor)
                 self.world.step(self.rng, float(
                     np.clip(dt, 0.25 * cfg.t_max, cfg.t_max)))
 
@@ -755,8 +792,8 @@ class GenFVRunner:
         if "stream_cfg" in meta:
             raise ValueError(
                 "checkpoint was written by a streaming engine (it carries "
-                "in-flight upload state); the synchronous runner cannot "
-                "resume it")
+                "in-flight upload state); load it with "
+                "repro_torch.fl.stream.StreamEngine.load_checkpoint")
         self._restore_state(restore_tree(path))
         return self.next_round
 

@@ -47,11 +47,11 @@ class GenFVServer:
     def fleet_round(self, engine, imgs_list: List, labels_list: List,
                     sizes: Sequence[int], emds: Sequence[float],
                     aug_model=None, prox_mu: float = 0.0, *,
-                    rhos=None, kappa_emds=None):
-        """Run all selected vehicles' local SGD and the finiteness-guarded
-        eq. (4) aggregation (fl/fleet.py); `self.params` is rebound to the
-        aggregate. Returns (params, (kappa1, kappa2), losses [K],
-        finite [K]).
+                    guard: bool, rhos=None, kappa_emds=None):
+        """Run all selected vehicles' local SGD and the eq. (4) aggregation
+        (fl/fleet.py), finiteness-guarded if `guard`; `self.params` is
+        rebound to the aggregate. Returns (params, (kappa1, kappa2),
+        losses [K], finite [K]).
 
         `rhos` overrides the data weights (the round loop computes them
         jointly over fresh and buffered stale participants); `kappa_emds`
@@ -62,7 +62,7 @@ class GenFVServer:
             if aug_model is not None else 0.0
         self.params, losses, finite = engine.run(
             self.params, imgs_list, labels_list, rhos, emd_bar, aug_model,
-            prox_mu)
+            prox_mu, guard=guard)
         return self.params, kappas(emd_bar), losses, finite
 
     # ---- merge of one late update -----------------------------------------

@@ -7,10 +7,12 @@ SUBP4 schedule from it. Every draw of the loop comes from
 ``SeedSequence((seed, lane, PRETRAIN_KEY))``: the initial parameters (lane
 0, drawn on the host), the batch indices (lane 1, the JAX package's numpy
 stream, so the same batches) and each step's (t, eps) loss draws (lane 2,
-on the host). On the CPU any process that pretrains with the same arguments
+on the host). Any process that pretrains with the same arguments
 reconstructs bitwise-identical parameters, so the generator needs no place
-in the runner checkpoint; on the card that holds under deterministic cuDNN
-(PERF.md). Tests inject the JAX package's initial parameters and loss draws
+in the runner checkpoint. On the card that needs cuDNN's deterministic
+algorithms (the default weight gradients differ run to run), so the loop
+runs under `deterministic_cudnn`, which restores the caller's flags after
+it; the fleet step keeps cuDNN's defaults. Tests inject the JAX package's initial parameters and loss draws
 (`init_params`, `draws`).
 
 Checkpointing (``repro_torch.gen/ddpm-ckpt/v1`` via `checkpoint/io.py`) is
@@ -20,6 +22,7 @@ fingerprint (ddpm shape + pretrain budget) before restoring.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager, nullcontext
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -51,6 +54,20 @@ def _pretrain_fingerprint(ddpm: DDPM, dataset: str, steps: int,
             "beta_min": ddpm.beta_min, "beta_max": ddpm.beta_max,
             "steps": int(steps), "ref_size": int(ref_size),
             "batch": int(batch), "lr": float(lr), "seed": int(seed)}
+
+
+@contextmanager
+def deterministic_cudnn():
+    """Run the body with cuDNN's deterministic algorithms and no autotuning
+    (`torch.backends.cudnn.deterministic = True`, `benchmark = False`),
+    then restore the caller's two flags, also when the body raises."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def _lane(seed: int, lane: int) -> np.random.SeedSequence:
@@ -102,8 +119,9 @@ def pretrain_ddpm(ddpm: DDPM, dataset: str = "cifar10", steps: int = 80,
     loss_rng = np.random.Generator(np.random.Philox(_lane(seed, 2)))
     losses = []
     obs = obs if obs is not None else NULL_OBS
-    with obs.span("gen/pretrain", key=(ddpm.base_width, steps),
-                  dataset=dataset, steps=steps) as sp:
+    pure = deterministic_cudnn() if device.type == "cuda" else nullcontext()
+    with pure, obs.span("gen/pretrain", key=(ddpm.base_width, steps),
+                        dataset=dataset, steps=steps) as sp:
         for s in range(steps):
             ix = torch.from_numpy(rng.integers(0, len(labels), batch)).to(device)
             t, eps = draws[s] if draws is not None else draw_loss_noise(

@@ -16,8 +16,6 @@ from typing import Any, Dict, List
 
 import torch
 
-from repro_torch.exp.artifacts import artifact_dir
-
 SCHEMA_PREFIX = "repro_torch.obs"
 METRICS_SCHEMA = f"{SCHEMA_PREFIX}/metrics/v1"
 #: file-name prefix of the port's metrics artifacts
@@ -62,6 +60,9 @@ def save_metrics_artifact(payload: Dict[str, Any], name: str,
     if payload.get("schema") != METRICS_SCHEMA:
         raise ValueError(f"payload schema {payload.get('schema')!r} != "
                          f"{METRICS_SCHEMA!r}")
+    # imported here: repro_torch.exp's sweep layer imports the round loop,
+    # which imports this package
+    from repro_torch.exp.artifacts import artifact_dir
     path = os.path.join(artifact_dir(directory),
                         f"{ARTIFACT_PREFIX}{name}.metrics.json")
     with open(path, "w") as f:

@@ -200,7 +200,7 @@ def _guarded_both(stacked, weights, aug, aug_w, fb):
     k = len(weights)
     t_out, t_fin = t_emd.aggregate_stacked_guarded(
         torch.from_numpy(_flat(stacked, (k,))), weights,
-        torch.from_numpy(_flat(aug)), aug_w, torch.from_numpy(_flat(fb)))
+        torch.from_numpy(_flat(aug)), aug_w, torch.from_numpy(_flat(fb)), guard=True)
     return (_flat(jax.tree.map(np.asarray, j_out)), np.asarray(j_fin),
             t_out.numpy(), t_fin.numpy())
 
@@ -244,6 +244,30 @@ def test_guarded_rejects_and_renormalizes(bad_rows, value):
     assert np.array_equal(t_fin, want) and np.array_equal(j_fin, want)
     assert np.isfinite(t_out).all()
     assert np.array_equal(t_out, j_out)
+
+
+@pytest.mark.parametrize("bad_rows,value", [((1,), np.nan), ((0, 4), np.inf),
+                                            ((2, 7), -np.inf)])
+def test_unguarded_propagates_like_the_reference(bad_rows, value):
+    """`guard=False` (a step without injected poison): the mask is all true
+    and a non-finite row reaches the aggregate as in the JAX package's
+    unguarded `aggregate_stacked`."""
+    rng = np.random.default_rng(12)
+    k, pad = 6, 2
+    stacked = _stacked(rng, k + pad)
+    for r in bad_rows:
+        stacked["b" if r % 2 else "a"][r].flat[r % 3] = value
+    aug = {n: v[0] for n, v in _stacked(rng, 1).items()}
+    fb = {n: v[0] for n, v in _stacked(rng, 1).items()}
+    w = _weights(rng, k, pad)
+    want = j_emd.aggregate_stacked(jax.tree.map(jnp.asarray, stacked), jnp.asarray(w),
+                                   jax.tree.map(jnp.asarray, aug), jnp.float32(0.25))
+    got, fin = t_emd.aggregate_stacked_guarded(
+        torch.from_numpy(_flat(stacked, (k + pad,))), w, torch.from_numpy(_flat(aug)), 0.25,
+        torch.from_numpy(_flat(fb)), guard=False)
+    want = _flat(jax.tree.map(np.asarray, want))
+    assert fin.all() and not np.isfinite(want).all()
+    assert np.array_equal(got.numpy(), want, equal_nan=True)
 
 
 def test_guarded_all_rows_poisoned_falls_back():
@@ -301,7 +325,7 @@ def test_absorb_equals_the_reference(weight):
 
 
 @pytest.mark.parametrize("n,with_aug", [(1, True), (3, True), (5, False), (0, True),
-                                        (0, False)])
+                                        (0, False), (2, False), (4, True)])
 def test_sequential_aggregate_equals_the_reference(n, with_aug):
     rng = np.random.default_rng(n + 10 * with_aug)
     p, aug = _trees(rng, 2)

@@ -64,6 +64,7 @@ from repro_torch.gen import (BatchedDDPMGenerator, CALIB_SCHEMA,  # noqa: E402
                              load_calibration, load_pretrained, pretrain_ddpm,
                              sample_schedule, save_calibration,
                              strided_timesteps)
+from repro_torch.gen.pretrain import deterministic_cudnn  # noqa: E402
 from repro_torch.gen.sampler import _sample_strided  # noqa: E402
 from repro_torch.optim import adamw, constant_schedule  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -314,6 +315,28 @@ def test_pretrain_deterministic_and_checkpointed(tmp_path):
         load_pretrained(str(tmp_path / "other"), TINY, device=CPU)
     with pytest.raises(ValueError):
         pretrain_ddpm(DDPM(num_classes=7), steps=1, ref_size=8, device=CPU)
+
+
+@pytest.mark.parametrize("caller", [(False, True), (True, False), (False, False)])
+def test_deterministic_cudnn_scopes_and_restores_the_flags(caller):
+    """Pretraining on the card runs under cuDNN's deterministic algorithms
+    (a pure function of its seed) and leaves the caller's two flags as they
+    were, also when the body raises."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = caller
+        with deterministic_cudnn():
+            assert (cudnn.deterministic, cudnn.benchmark) == (True, False)
+        assert (cudnn.deterministic, cudnn.benchmark) == caller
+        with pytest.raises(RuntimeError, match="inside"):
+            with deterministic_cudnn():
+                raise RuntimeError("inside")
+        assert (cudnn.deterministic, cudnn.benchmark) == caller
+        pretrain_ddpm(TINY, steps=1, ref_size=16, batch=4, device=CPU)
+        assert (cudnn.deterministic, cudnn.benchmark) == caller
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 # ---------------------------------------------------------------------------

@@ -224,15 +224,16 @@ def test_aggregate_stacked_matches_jax_bitwise():
         want = np.asarray(j_aggregate_stacked({"x": jnp.asarray(s)}, jnp.asarray(w),
                                               {"x": jnp.asarray(a)}, jnp.float32(k2))["x"])
         got, finite = aggregate_stacked_guarded(torch.from_numpy(s), w, torch.from_numpy(a),
-                                                np.float32(k2), torch.from_numpy(a))
+                                                np.float32(k2), torch.from_numpy(a),
+                                                guard=True)
         assert np.array_equal(got.numpy(), want) and finite.all(), k
         short, _ = aggregate_stacked_guarded(torch.from_numpy(s[:k]), w[:k],
                                              torch.from_numpy(a), np.float32(k2),
-                                             torch.from_numpy(a))
+                                             torch.from_numpy(a), guard=True)
         assert np.array_equal(short.numpy(), want), f"padding moved the aggregate at K={k}"
     with pytest.raises(ValueError):
         aggregate_stacked_guarded(torch.from_numpy(s), w[:3], torch.from_numpy(a), 0.0,
-                                  torch.from_numpy(a))
+                                  torch.from_numpy(a), guard=True)
 
 
 def _fleet_inputs(k, h=2, batch=8):
@@ -255,12 +256,12 @@ def test_fleet_run_matches_jax(params, k):
     eng, bis, bls, rhos, emd_bar = _fleet_inputs(k)
     je = JFleetEngine(CFG_J, eng.h, eng.batch_size, CLIENT_LR)
     want, want_losses = je.run(jax.tree.map(jnp.asarray, pj), bis, bls, rhos, emd_bar, aug_j)
-    got, losses, finite = eng.run(pt, bis, bls, rhos, emd_bar, aug_t)
+    got, losses, finite = eng.run(pt, bis, bls, rhos, emd_bar, aug_t, guard=True)
     assert finite.all() and finite.shape == (k,)
     err = np.abs(_flat(got) - _flat_jax(want)).max()
     assert err <= AGG_TOL32, f"K={k}: aggregate {err:.3e} > {AGG_TOL32}"
     np.testing.assert_allclose(losses, np.asarray(want_losses), rtol=1e-3)
-    plain, _, _ = eng.run(pt, bis, bls, rhos)       # no omega_a: kappa2 = 0
+    plain, _, _ = eng.run(pt, bis, bls, rhos, guard=True)  # no omega_a: kappa2 = 0
     want_plain, _ = je.run(jax.tree.map(jnp.asarray, pj), bis, bls, rhos)
     err = np.abs(_flat(plain) - _flat_jax(want_plain)).max()
     assert err <= AGG_TOL32, f"K={k} without omega_a: {err:.3e} > {AGG_TOL32}"
@@ -277,7 +278,7 @@ def test_fleet_run_rejects_a_poisoned_vehicle(params):
     bad = 2
     poisoned = list(bis)
     poisoned[bad] = np.full_like(bis[bad], np.nan)
-    got, losses, finite = eng.run(pt, poisoned, bls, rhos, emd_bar, aug_t)
+    got, losses, finite = eng.run(pt, poisoned, bls, rhos, emd_bar, aug_t, guard=True)
     assert finite.tolist() == [i != bad for i in range(5)]
     assert np.isfinite(_flat(got)).all()
     assert np.isnan(losses[bad]) and np.isfinite(np.delete(losses, bad)).all()
@@ -289,7 +290,7 @@ def test_fleet_run_rejects_a_poisoned_vehicle(params):
     assert err <= AGG_TOL32, f"poisoned fleet step: {err:.3e} > {AGG_TOL32}"
     keep = [i for i in range(5) if i != bad]
     clean, _, _ = eng.run(pt, [bis[i] for i in keep], [bls[i] for i in keep],
-                          rhos[keep] / rhos[keep].sum(), emd_bar, aug_t, bucket=8)
+                          rhos[keep] / rhos[keep].sum(), emd_bar, aug_t, bucket=8, guard=True)
     np.testing.assert_allclose(_flat(got), _flat(clean), rtol=0, atol=1e-6)
 
 
@@ -300,7 +301,8 @@ def test_fleet_run_float64_is_per_vehicle_and_bucket_free(params):
     _, pt, _, aug_t = params
     eng, bis, bls, rhos, emd_bar = _fleet_inputs(3)
     p64, a64 = _double(pt), _double(aug_t)
-    outs = {kb: eng.run(p64, bis, bls, rhos, emd_bar, a64, prox_mu=0.1, bucket=kb)
+    outs = {kb: eng.run(p64, bis, bls, rhos, emd_bar, a64, prox_mu=0.1, bucket=kb,
+                        guard=True)
             for kb in (4, 8)}
     assert np.array_equal(_flat(outs[4][0]), _flat(outs[8][0]))
     assert np.array_equal(outs[4][1], outs[8][1])
@@ -313,7 +315,7 @@ def test_fleet_run_float64_is_per_vehicle_and_bucket_free(params):
     k1, k2 = kappas(emd_bar)
     want, _ = aggregate_stacked_guarded(torch.stack(models), np.float32(k1 * rhos),
                                         FlatSpec(a64).flatten(a64), np.float32(k2),
-                                        FlatSpec(p64).flatten(p64))
+                                        FlatSpec(p64).flatten(p64), guard=True)
     assert np.array_equal(_flat(outs[4][0]), want.numpy())
     np.testing.assert_allclose(outs[4][1], losses, rtol=1e-12)
 
@@ -325,12 +327,13 @@ def test_fleet_bucket_invariance_float32_cpu(params):
     buckets agree bit for bit with bucket 8."""
     _, pt, _, aug_t = params
     eng, bis, bls, rhos, emd_bar = _fleet_inputs(3)
-    outs = {kb: eng.run(pt, bis, bls, rhos, emd_bar, aug_t, bucket=kb) for kb in (4, 8, 16)}
+    outs = {kb: eng.run(pt, bis, bls, rhos, emd_bar, aug_t, bucket=kb, guard=True)
+            for kb in (4, 8, 16)}
     err = np.abs(_flat(outs[4][0]) - _flat(outs[8][0])).max()
     assert err <= AGG_TOL32, f"bucket 4 vs 8: {err:.3e} > {AGG_TOL32}"
     np.testing.assert_allclose(outs[4][1], outs[8][1], rtol=1e-5)
     assert np.array_equal(_flat(outs[8][0]), _flat(outs[16][0]))
     with pytest.raises(ValueError, match="smaller"):
-        eng.run(pt, bis, bls, rhos, bucket=2)
+        eng.run(pt, bis, bls, rhos, bucket=2, guard=True)
     with pytest.raises(ValueError, match="at least one"):
-        eng.run(pt, [], [], [])
+        eng.run(pt, [], [], [], guard=True)

@@ -354,7 +354,9 @@ def test_no_bare_print_in_library():
 
 
 def test_no_wall_clock_in_the_round_loop():
-    """The round loop and the serving engine read no wall clock (clocks
-    are injected: `Obs(clock=...)`, `VirtualClock`)."""
-    offenders = _offenders(SRC / "fl", _WALLCLOCK_RE) + _offenders(SRC / "serve", _WALLCLOCK_RE)
+    """The round loop (fl/, the streaming engine fl/stream.py among it),
+    the experiment layer (exp/) and the serving engine read no wall clock
+    (clocks are injected: `Obs(clock=...)`, `VirtualClock`)."""
+    assert (SRC / "fl" / "stream.py").exists() and (SRC / "exp" / "sweep.py").exists()
+    offenders = [o for sub in ("fl", "exp", "serve") for o in _offenders(SRC / sub, _WALLCLOCK_RE)]
     assert not offenders, offenders

@@ -379,7 +379,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.fl.faults, repro_torch.fl.rounds, repro_torch.checkpoint\n"
         "import repro_torch.obs, repro_torch.obs.sinks\n"
         "import repro_torch.gen, repro_torch.exp, repro_torch.optim, repro_torch.diffusion\n"
-        "import repro_torch.fl.generator\n"
+        "import repro_torch.fl.generator, repro_torch.fl.stream, repro_torch.core.convergence\n"
+        "import repro_torch.exp.sweep, repro_torch.exp.analysis\n"
         "print('imported')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
