@@ -11,6 +11,18 @@ Phases, each fatal on failure:
      scan with and without an incoming state;
   4. serve recurrentgemma-9b at full width in bf16 through ServeEngine and
      check, by the launch counters, that the serving path ran the kernels;
+     then the attention LM families (phase `families`): F1 holds the flash
+     kernel to its plain version on the branches the families add (softcap
+     on the wgmma prefill path, causal=False at prefill and decode, GQA
+     group 2 at hd 256 against a 4096-slot ring and an 8192-slot cache, 36
+     ungrouped heads, groups 4 and 6 at hd 128) and at gemma2-9b's serving
+     shapes; F2 serves gemma2-9b at full width in bf16 (42 layers, random
+     weights from seed 0, 4 slots, 8192-slot caches, six requests up to a
+     5000-token prompt that wraps the 4096-slot ring), with 42 flash
+     launches per prefill and per tick; F3 holds each of the eight
+     families, reduced, on the card against the CPU (the MoE ones in each
+     mode, llava with patches, whisper with cross K/V, gemma2 also under
+     its long-context variant);
   5. check that continuous batching equals isolated generation on the card
      (full width, reduced depth, fp32), and that the reduced model on the
      card gives the logits it gives on the CPU;
@@ -40,8 +52,9 @@ Phases, each fatal on failure:
      re-planned one by one and Theorem 1's table, sweep == per-cell
      (deterministic cuDNN), a fault-free divergence kept on both paths, and
      two pretrainings bitwise under the process's cuDNN flags;
-  7. time each kernel at the serving shapes beside its bound, its plain
-     version and, for attention, PyTorch's scaled_dot_product_attention.
+  7. time each kernel at the serving shapes (recurrentgemma-9b's and
+     gemma2-9b's) beside its bound, its plain version and, for attention
+     without softcap, PyTorch's scaled_dot_product_attention.
 
 Run from the repository root:  python3 chip_smoke.py
 Without a CUDA device it exits non-zero and prints no result. It prints the
@@ -89,9 +102,11 @@ from repro_torch.gen.pretrain import deterministic_cudnn, pretrain_ddpm  # noqa:
 from repro_torch.gen.sampler import image_noise, sample_schedule  # noqa: E402
 from repro_torch.gen.service import BatchedDDPMGenerator  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import DECODE_MAX_SQ  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      rglru_scan_ref)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.tree import FlatSpec, tree_leaves, tree_map  # noqa: E402
@@ -476,22 +491,23 @@ def serve(cfg, dtype, device, mix, slots, max_len):
     return rec, eng.params
 
 
-def serve_full_width(device):
-    cfg = get_config(ARCH)
-    rec, params = serve(cfg, torch.bfloat16, device, SERVE_MIX, slots=4, max_len=4096)
+def serve_full_width(device, arch=ARCH, mix=SERVE_MIX, max_len=4096):
+    cfg = get_config(arch)
+    rec, params = serve(cfg, torch.bfloat16, device, mix, slots=4, max_len=max_len)
     n_params = sum(t.numel() for t in tree_leaves(params))
     # ModelConfig.param_count() counts 3 * lru_width vector parameters per
     # recurrent block; the block (here and in the JAX package) holds 2: lam
     # and the conv bias.
     n_rec = cfg.layer_kinds.count("rglru")
-    require(n_params == cfg.param_count() - n_rec * cfg.lru_width,
+    require(n_params == cfg.param_count() - n_rec * (cfg.lru_width or 0),
             f"{n_params} parameters; ModelConfig.param_count() = {cfg.param_count()}")
     del params
+    rec["n_params"] = n_params
     dec = rec["decode_ms"]
-    print(f"serve {ARCH} full width bf16: {n_params:,} parameters "
+    print(f"serve {arch} full width bf16: {n_params:,} parameters "
           f"(ModelConfig.param_count() {cfg.param_count():,}), init {rec['init_s']:.1f} s")
     print("  prefill ms per request (prompt length): " + ", ".join(
-        f"{ms:.1f} ({p})" for ms, (p, _) in zip(rec["prefill_ms"], SERVE_MIX)))
+        f"{ms:.1f} ({p})" for ms, (p, _) in zip(rec["prefill_ms"], mix)))
     print(f"  decode ticks {len(dec)}: median {statistics.median(dec):.2f} ms, "
           f"mean {statistics.fmean(dec):.2f} ms, max {max(dec):.2f} ms")
     print(f"  {rec['tokens']} tokens in {rec['run_s']:.2f} s: {rec['tokens'] / rec['run_s']:.1f} tokens/s; "
@@ -1771,6 +1787,301 @@ def genfv_stream_sweep(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase families: the attention LM families
+# ---------------------------------------------------------------------------
+FAMILY_ARCH = "gemma2-9b"
+# F2's mix: (prompt length, new tokens). 5000 wraps the 4096-slot local
+# ring (its first 904 queries find no valid slot on the local layers); 4096
+# fills it exactly.
+FAMILY_MIX = [(5000, 16), (4096, 20), (3000, 24), (700, 28), (128, 32), (33, 16)]
+FAMILY_MAX_LEN = 8192
+FAMILIES = ("qwen1.5-0.5b", "gemma-2b", "gemma2-9b", "minicpm-2b", "llava-next-mistral-7b",
+            "whisper-tiny", "olmoe-1b-7b", "grok-1-314b")
+MOE_MODES = ("dense", "sorted", "sorted_grouped")
+FAMILY_SOFTCAP = 50.0
+# The gemma2-9b serving shapes of the kernel line: (name, cache slots).
+FAMILY_SHAPES = (("gemma2_decode", 8192), ("gemma2_prefill_ring", 4096),
+                 ("gemma2_prefill_global", 8192))
+
+
+def capped_scale(cap, dtype):
+    """The factor on q of a softcap case. In bf16, cap / 2: scores of std
+    cap / 2 reach past the cap, where tanh bends them; at unit scale a
+    missing cap moves a bf16 output by about 1e-3 of its rms, inside the
+    bf16 limit. fp32's own limit (1e-5) already shows a missing cap at
+    unit scale, while scores of std 25 would put fp32's rounding of the
+    scores themselves past it."""
+    return cap / 2 if cap and dtype == torch.bfloat16 else 1.0
+
+
+def family_attention_cases(gen, device, dtype):
+    """F1: the flash kernel's branches the eight families run that phase 3
+    does not reach: softcap on the wgmma prefill path, causal=False at
+    prefill and decode, GQA group 2 at hd 256 against a 4096-slot ring and
+    an 8192-slot cache, 36 heads without grouping, group 4 and group 6 at
+    hd 128."""
+    cases = []
+    rows = torch.arange(700, dtype=torch.int32, device=device)[None].repeat(2, 1)
+    for Skv, window in ((4096, 4096), (8192, None)):
+        q, k, v = attn_inputs(gen, 2, 700, Skv, 16, 8, 256, dtype, device)
+        cases.append((f"prefill 700 rows hd 256 16/8 heads softcap 50, Skv {Skv} window {window}",
+                      (q * capped_scale(FAMILY_SOFTCAP, dtype), k, v, rows,
+                       ring_positions([700, 350], Skv, device)),
+                      {"window": window, "softcap": FAMILY_SOFTCAP}))
+    frames = torch.arange(1500, dtype=torch.int32, device=device)[None].repeat(2, 1)
+    q, k, v = attn_inputs(gen, 2, 1500, 1500, 6, 6, 64, dtype, device)
+    cases.append(("non-causal prefill 1500 x 1500 frames hd 64 6/6 heads",
+                  (q, k, v, frames, frames), {"causal": False}))
+    q_pos = torch.tensor([[5], [17], [0], [300]], dtype=torch.int32, device=device)
+    for name, kv_pos in (("positions 0..1499", frames[:1].repeat(4, 1)),
+                         ("every slot at position 0, as init_cache's cross K/V",
+                          torch.zeros((4, 1500), dtype=torch.int32, device=device))):
+        q, k, v = attn_inputs(gen, 4, 1, 1500, 6, 6, 64, dtype, device)
+        cases.append((f"non-causal decode against 1500 frames, {name}",
+                      (q, k, v, q_pos, kv_pos), {"causal": False}))
+    lengths = [2048, 900, 33, 0]
+    lanes = torch.tensor(lengths, dtype=torch.int32, device=device)[:, None]
+    for nq, nkv, hd, cap in ((36, 36, 64, None), (32, 8, 128, None), (48, 8, 128, 30.0)):
+        q, k, v = attn_inputs(gen, 4, 1, 2048, nq, nkv, hd, dtype, device)
+        cases.append((f"decode hd {hd} {nq}/{nkv} heads softcap {cap} with an empty lane",
+                      (q * capped_scale(cap, dtype), k, v, lanes,
+                       ring_positions(lengths, 2048, device)), {"softcap": cap}))
+        q, k, v = attn_inputs(gen, 2, 700, 1024, nq, nkv, hd, dtype, device)
+        cases.append((f"prefill 700 rows hd {hd} {nq}/{nkv} heads softcap {cap}",
+                      (q * capped_scale(cap, dtype), k, v, rows,
+                       ring_positions([700, 400], 1024, device)), {"softcap": cap}))
+    return cases
+
+
+def family_serving_inputs(name, gen, device):
+    """The gemma2-9b shapes F2 gives the kernel, in bf16: a decode tick of 4
+    slots against the 8192-slot global cache, and the 5000-token prefill
+    against the 4096-slot ring and against the 8192-slot cache. q is scaled
+    as in F1's bf16 softcap cases."""
+    cfg = get_config(FAMILY_ARCH)
+    nq, nkv, hd, win = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
+    kw = {"softcap": cfg.attn_softcap}
+    scale = capped_scale(cfg.attn_softcap, torch.bfloat16)
+    if name == "gemma2_decode":
+        lengths = [5015, 4115, 3023, 727]
+        q, k, v = attn_inputs(gen, 4, 1, FAMILY_MAX_LEN, nq, nkv, hd, torch.bfloat16, device)
+        q_pos = torch.tensor(lengths, dtype=torch.int32, device=device)[:, None]
+        return (q * scale, k, v, q_pos, ring_positions(lengths, FAMILY_MAX_LEN, device)), kw
+    S = FAMILY_MIX[0][0]
+    q_pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+    if name == "gemma2_prefill_ring":
+        q, k, v = attn_inputs(gen, 1, S, win, nq, nkv, hd, torch.bfloat16, device)
+        kv_pos = torch.arange(S - win, S, dtype=torch.int32, device=device)[None]
+        return (q * scale, k, v, q_pos, kv_pos), {**kw, "window": win}
+    q, k, v = attn_inputs(gen, 1, S, FAMILY_MAX_LEN, nq, nkv, hd, torch.bfloat16, device)
+    return (q * scale, k, v, q_pos, ring_positions([S], FAMILY_MAX_LEN, device)), kw
+
+
+def softcap_control(args, kw, what):
+    """The plain version without the cap against the plain version with it,
+    on a softcap case's inputs: it must miss by more than the case's limit,
+    elementwise and in rms, so that a kernel that drops the cap fails the
+    case. Returns (worst share of the limit, rms share)."""
+    want = flash_attention_ref(*args, **kw).float()
+    off = (flash_attention_ref(*args, **{**kw, "softcap": None}).float() - want).abs()
+    worst = float((off / flash_limit(args, kw, want)).max())
+    rms = float(off.square().mean().sqrt() / want.square().mean().sqrt().clamp(min=1e-30))
+    tol = FLASH_RMS_TOL[args[0].dtype]
+    require(worst > 1.0 and rms > tol, f"flash attention {what}: the case cannot see a missing "
+            f"softcap (no cap misses by {worst:.3f} x the limit, rms {rms:.3e} <= {tol})")
+    return worst, rms
+
+
+def family_kernels(device):
+    """F1: every new branch in fp32 and bf16 against the plain version,
+    then the gemma2-9b serving shapes; each softcap case also passes
+    softcap_control. Returns the serving shapes' max errors."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = rms = 0.0
+        seen = []
+        cases = family_attention_cases(gen, device, dtype)
+        for name, args, kw in cases:
+            err, w, r = flash_error(args, kw, device, f"{dtype} {name}")
+            worst, rms = max(worst, w), max(rms, r)
+            control = ""
+            if kw.get("softcap"):
+                cw, cr = softcap_control(args, kw, f"{dtype} {name}")
+                seen.append(cw)
+                control = f"; without the cap {cw:.1f} x the limit, rms {cr:.3e}"
+            print(f"  flash attention {dtype} {name}: max error {err:.3e}, "
+                  f"{w:.3f} x the limit, rms {r:.3e}{control}")
+        print(f"families F1: {len(cases)} flash cases in {dtype} within {_tol_text(dtype)}: "
+              f"worst {worst:.3f} x the limit, rms {rms:.3e}; {len(seen)} softcap cases each "
+              f"miss by {min(seen):.1f} x the limit or more without the cap")
+    errors = {}
+    for name, _ in FAMILY_SHAPES:
+        args, kw = family_serving_inputs(name, gen, device)
+        err, worst, rms = flash_error(args, kw, device, f"{name} serving shape")
+        cw, cr = softcap_control(args, kw, f"{name} serving shape")
+        errors[f"flash_attention.{name}"] = err
+        print(f"families F1 {name}: q {tuple(args[0].shape)} kv {tuple(args[1].shape)} bf16, "
+              f"max error {err:.3e}, {worst:.3f} x the limit, rms {rms:.3e}; without the cap "
+              f"{cw:.1f} x the limit, rms {cr:.3e}")
+        del args
+    return errors
+
+
+class FlashTally:
+    """Stands in for `ops.flash_attention` (the name the model's attention
+    calls) while active: passes each call to the wrapper and adds the
+    wrapper's own launch count increments to `counts`, keyed by ("decode"
+    or "prefill", cache slots) by the wrapper's own rule: a call of fewer
+    than DECODE_MAX_SQ query rows (a 33-token prompt too) runs the split-KV
+    decode kernel. `launches` is the wrapper's counter."""
+
+    def __init__(self):
+        self.fn = ops.flash_attention
+        self.counts = {}
+
+    launches = property(lambda self: self.fn.launches,
+                        lambda self, n: setattr(self.fn, "launches", n))
+
+    def __call__(self, q, k, *args, **kw):
+        n0 = self.fn.launches
+        out = self.fn(q, k, *args, **kw)
+        key = ("decode" if q.shape[1] < DECODE_MAX_SQ else "prefill", k.shape[1])
+        self.counts[key] = self.counts.get(key, 0) + self.fn.launches - n0
+        return out
+
+    def __enter__(self):
+        ops.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        ops.flash_attention = self.fn
+        return False
+
+
+def family_inputs(cfg, B, S, seed):
+    """Prompt tokens and the family's other inputs (llava's patch
+    embeddings, whisper's frames), made on the CPU from `seed`."""
+    rng = np.random.default_rng(seed)
+    extras = {}
+    if cfg.modality == "vision":
+        extras["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.frontend_tokens, 1024)), dtype=torch.float32)
+    if cfg.modality == "audio":
+        extras["frames"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, S))), extras
+
+
+def family_card_matches_cpu(device, arch, long_window=None, what=""):
+    """F3: the reduced family on the card, through the kernel, against the
+    same weights on the CPU, through the plain versions the CPU tests hold
+    to the JAX package: prefill of 80 tokens (llava with 16 patches before
+    them; whisper with the cross K/V of its encoded frames attached) and 4
+    greedy decode steps on the CPU's tokens, two rows, fp32. Logits within
+    1e-4 x max(1, max|logit|); the card's greedy token equals the CPU's
+    wherever the CPU's top-2 margin exceeds that. Returns (worst logit
+    error share, near-ties, flash launches)."""
+    cfg = get_config(arch).reduced()
+    cpu = torch.device("cpu")
+    B, S, steps, max_len = 2, 80, 4, 128
+    params = {cpu: api.init_params(torch.Generator().manual_seed(4), cfg, device=cpu)}
+    params[device] = tree_map(lambda x: x.to(device), params[cpu])
+    prompt, extras = family_inputs(cfg, B, S, seed=4)
+    caches = {d: api.init_cache(cfg, B, max_len, torch.float32, d) for d in (cpu, device)}
+    ops.flash_attention.launches = 0
+    if "frames" in extras:
+        for d in (cpu, device):
+            with torch.inference_mode():
+                enc = tfm.encode(params[d], cfg, extras["frames"].to(d))
+                tfm.attach_cross_kv(caches[d], tfm.build_cross_kv(params[d], cfg, enc))
+    prefill = api.make_prefill_step(cfg, long_window=long_window)
+    decode = api.make_decode_step(cfg, long_window=long_window)
+    batch = {"tokens": prompt, **{k: v for k, v in extras.items() if k != "frames"}}
+    logits = {d: prefill(params[d], caches[d], {k: v.to(d) for k, v in batch.items()})[0]
+              for d in (cpu, device)}
+    start = S + (cfg.frontend_tokens if "patch_embeds" in extras else 0)
+    worst, ties = 0.0, 0
+    for i in range(steps + 1):
+        want, got = logits[cpu], logits[device].cpu()
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        worst = max(worst, float((got - want).abs().max()) / (tol / 1e-4))
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        require(bool((same | ~clear).all()),
+                f"{arch}{what}: step {i} greedy token differs with a clear margin")
+        ties += int((~clear).sum())
+        if i == steps:
+            break
+        tok = torch.argmax(want, -1)[:, None]
+        pos = torch.full((B, 1), start + i, dtype=torch.int32)
+        logits = {d: decode(params[d], caches[d], tok.to(d), pos.to(d))[0] for d in (cpu, device)}
+    require(worst <= 1e-4, f"{arch}{what}: card against CPU logit error "
+            f"{worst:.3e} x max(1, max|logit|)")
+    n_attn = sum(k in ("local", "global") for k in cfg.layer_kinds)
+    want_launches = (steps + 1) * n_attn * (2 if cfg.is_encdec else 1) + cfg.encoder_layers
+    require(ops.flash_attention.launches == want_launches,
+            f"{arch}{what}: {ops.flash_attention.launches} flash launches, want {want_launches}")
+    print(f"families F3 {arch}{what}: card == CPU, prefill {S} + {steps} decode steps, logit "
+          f"error {worst:.3e} x max(1, max|logit|), greedy tokens equal ({ties} near-ties), "
+          f"flash launches {ops.flash_attention.launches}")
+    return worst, ties, ops.flash_attention.launches
+
+
+def family_runs(device):
+    """F3 over the eight families, the MoE ones in each mode and gemma2 also
+    under its long-context variant."""
+    out = []
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        variants = [("", None)]
+        if cfg.moe is not None:
+            variants = [(f" moe {m}", m) for m in MOE_MODES]
+        for what, mode in variants:
+            if mode is not None:
+                tfm.set_moe_mode(mode)
+            try:
+                out.append((arch + what, family_card_matches_cpu(device, arch, what=what)))
+            finally:
+                tfm.set_moe_mode("dense")
+        if arch == FAMILY_ARCH:
+            lw = cfg.reduced().sliding_window
+            out.append((arch + " long_window",
+                        family_card_matches_cpu(device, arch, long_window=lw,
+                                                what=f" long_window={lw}")))
+    return out
+
+
+def families(device):
+    """Phase families: F1 the kernel's new branches, F2 gemma2-9b served at
+    full width, F3 the eight families reduced, card against CPU."""
+    t_start = time.perf_counter()
+    print(f"families on {card()}")
+    errors = family_kernels(device)
+    torch.cuda.empty_cache()
+    with FlashTally() as tally:
+        rec = serve_full_width(device, FAMILY_ARCH, FAMILY_MIX, FAMILY_MAX_LEN)
+    torch.cuda.empty_cache()
+    by_shape = {f"flash_attention.{name}": tally.counts.get(
+        ("decode" if "decode" in name else "prefill", slots), 0) for name, slots in FAMILY_SHAPES}
+    require(all(by_shape.values()), f"a gemma2 serving shape saw no launch: {by_shape}")
+    print(f"families F2 flash launches by (step, cache slots): "
+          f"{dict(sorted((f'{k[0]} {k[1]}', n) for k, n in tally.counts.items()))}")
+    f3 = family_runs(device)
+    phase_s = time.perf_counter() - t_start
+    print(f"families: phase {phase_s:.1f} s")
+    print(json.dumps({"families": {
+        "card": card(), "serve": {k: rec[k] for k in (
+            "n_params", "init_s", "run_s", "prefill_ms", "decode_ms", "tokens",
+            "max_memory_bytes", "flash_launches", "scan_launches", "launches")},
+        "launches_by_shape": by_shape,
+        "card_vs_cpu": {name: {"logit_error_share": w, "near_ties": t, "flash_launches": n}
+                        for name, (w, t, n) in f3},
+        "phase_s": phase_s}}))
+    return errors, by_shape
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, device, runs=20, warmup=3):
@@ -1796,15 +2107,19 @@ def time_ms(fn, device, runs=20, warmup=3):
     return statistics.median(times)
 
 
-def flash_bound(q, k, q_pos, kv_pos, window):
+def flash_bound(q, k, q_pos, kv_pos, window, causal=True):
     """Least time for this call's work on an H100: each needed input byte
     read once and the output written once, against the operations that
     the mask leaves (4*hd per valid (query, key, head), 2*hd per slot for a
     row with no valid slot, which averages V)."""
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
-    rel = q_pos[:, :, None] - kv_pos[:, None, :]
-    valid = (kv_pos[:, None, :] >= 0) & (rel >= 0) & (rel < window)
+    valid = (kv_pos[:, None, :] >= 0).expand(B, Sq, Skv)
+    if causal:
+        rel = q_pos[:, :, None] - kv_pos[:, None, :]
+        valid = valid & (rel >= 0)
+        if window is not None:
+            valid = valid & (rel < window)
     empty_rows = ~valid.any(-1)                                    # [B, Sq]
     ops_ = nq * hd * (4 * int(valid.sum()) + 2 * Skv * int(empty_rows.sum()))
     slots_read = int((valid.any(1) | empty_rows.any(1, keepdim=True)).sum())
@@ -1828,39 +2143,62 @@ def sdpa_call(q, k, v, q_pos, kv_pos, window):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
 
-def time_kernels(device, errors, launches):
+def _flash_entry(name, args, kw, device, errors, launches, library):
+    q, k, v, q_pos, kv_pos = args
+    bound, by = flash_bound(q, k, q_pos, kv_pos, kw.get("window"))
+    return {"name": f"flash_attention.{name}", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": launches, "max_abs_err": errors[f"flash_attention.{name}"],
+            "ms": time_ms(lambda: ops.flash_attention(*args, **kw), device),
+            "plain_ms": time_ms(lambda: flash_attention_ref(*args, **kw), device),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": None if library is None else time_ms(library, device),
+            "shape": f"q {list(q.shape)} kv {list(k.shape)} bf16"
+                     + (f" softcap {kw['softcap']:g}" if kw.get("softcap") else "")}
+
+
+def time_kernels(device, errors, launches, family_launches):
+    """The kernels at the serving shapes of phase 4 and of F2. SDPA has no
+    softcap, so the gemma2-9b shapes (softcap 50) have no library time. The
+    scan is timed right after the two recurrentgemma-9b rows and once more
+    after the gemma2-9b rows, so a move of its time can be told from the
+    order of the timings."""
     gen = torch.Generator(device=device).manual_seed(2)
     entries = []
     for kind in ("decode", "prefill"):
-        (q, k, v, q_pos, kv_pos), kw = slice_attention_inputs(kind, gen, device)
-        bound, by = flash_bound(q, k, q_pos, kv_pos, kw["window"])
-        ms = time_ms(lambda: ops.flash_attention(q, k, v, q_pos, kv_pos, **kw), device)
-        plain = time_ms(lambda: flash_attention_ref(q, k, v, q_pos, kv_pos, **kw), device)
-        lib = time_ms(sdpa_call(q, k, v, q_pos, kv_pos, kw["window"]), device)
-        entries.append({"name": f"flash_attention.{kind}", "route": "cuda",
-                        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-                        "launches": launches[f"flash_attention.{kind}"],
-                        "max_abs_err": errors[f"flash_attention.{kind}"],
-                        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                        "library_ms": lib,
-                        "shape": f"q {list(q.shape)} kv {list(k.shape)} bf16"})
+        args, kw = slice_attention_inputs(kind, gen, device)
+        entries.append(_flash_entry(kind, args, kw, device, errors,
+                                    launches[f"flash_attention.{kind}"],
+                                    sdpa_call(*args, kw["window"])))
+        del args
     # the serving path passes the incoming state h0
     shape = (1, 2500, 4096)
     la, b, h0 = scan_inputs(shape, gen, device, with_h0=True)
     t_bytes = (3 * la.numel() + h0.numel()) * 4 / HBM_BYTES_PER_S
     t_ops = 3 * la.numel() / PEAK_OPS_PER_S[torch.float32]
-    entries.append({"name": "rglru_scan.prefill", "route": "cuda", "source": SCAN_SOURCE,
-                    "replaces": SCAN_REPLACES, "launches": launches["rglru_scan.prefill"],
-                    "max_abs_err": errors["rglru_scan.prefill"],
-                    "ms": time_ms(lambda: ops.rglru_scan(la, b, h0), device),
-                    "plain_ms": time_ms(lambda: rglru_scan_ref(la, b, h0), device),
-                    "bound_ms": 1e3 * max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": None, "shape": f"{list(shape)} fp32 with h0"})
+    scan = {"name": "rglru_scan.prefill", "route": "cuda", "source": SCAN_SOURCE,
+            "replaces": SCAN_REPLACES, "launches": launches["rglru_scan.prefill"],
+            "max_abs_err": errors["rglru_scan.prefill"],
+            "ms": time_ms(lambda: ops.rglru_scan(la, b, h0), device),
+            "plain_ms": time_ms(lambda: rglru_scan_ref(la, b, h0), device),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": f"{list(shape)} fp32 with h0"}
+    for name, _ in FAMILY_SHAPES:
+        args, kw = family_serving_inputs(name, gen, device)
+        entries.append(_flash_entry(name, args, kw, device, errors,
+                                    family_launches[f"flash_attention.{name}"], None))
+        del args
+        torch.cuda.empty_cache()
+    entries.append(scan)
+    print(f"rglru_scan.prefill timed again after the gemma2-9b rows: "
+          f"{time_ms(lambda: ops.rglru_scan(la, b, h0), device):.4f} ms "
+          f"(the kernels line keeps the first, {scan['ms']:.4f} ms)")
     for e in entries:
-        print(f"{e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+        print(f"{e['name']} ({e['shape']}): {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
-              f"{'-' if e['library_ms'] is None else format(e['library_ms'], '.4f')} ms")
+              f"{'-' if e['library_ms'] is None else format(e['library_ms'], '.4f')} ms, "
+              f"launches {e['launches']}")
     return entries
 
 
@@ -1871,12 +2209,15 @@ def main():
     errors = check_kernels(device)
     rec = serve_full_width(device)
     torch.cuda.empty_cache()
+    family_errors, family_launches = families(device)
+    errors.update(family_errors)
+    torch.cuda.empty_cache()
     batching_equals_isolated(dataclasses.replace(get_config(ARCH), num_layers=3), device)
     card_matches_cpu(device)
     torch.cuda.empty_cache()
     genfv(device)
     torch.cuda.empty_cache()
-    entries = time_kernels(device, errors, rec["launches"])
+    entries = time_kernels(device, errors, rec["launches"], family_launches)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,18 +2,24 @@
 """Where a serving step of the PyTorch port spends its time on the GPU.
 
 Fills the four slots of chip_smoke.py's engine (recurrentgemma-9b at full
-width in bf16, random weights from seed 0) with the first four prompts of
-its serving mix, then traces one 2048-token prefill and a window of decode
-ticks with torch.profiler, through the model API's prefill and decode
-steps. For each it prints the wall time, the time the host takes to
-enqueue the step, the device-busy time (the union of kernel intervals on
-the device), the idle share, the kernels ranked by device time, and each
-of the port's own kernels with its share of the device-busy time.
+width in bf16, random weights from seed 0; or, with `--arch gemma2-9b`,
+the `families` phase's gemma2-9b engine with 8192-slot caches) with the
+first four prompts of its serving mix, then times one warm prefill of
+each prompt length of the mix (CUDA-synchronized host clock, the second
+of two runs), and traces one prefill of the mix's second prompt length
+(2048 tokens; 4096 for gemma2-9b) and a window of decode ticks with
+torch.profiler, through the model API's prefill and decode steps. For
+each it prints the wall time, the time the host takes to enqueue the
+step, the device-busy time (the union of kernel intervals on the
+device), the idle share, the kernels ranked by device time, and each of
+the port's own kernels with its share of the device-busy time.
 
-Run from the repository root on a CUDA machine:  python3 profile_serve.py
+Run from the repository root on a CUDA machine:
+    python3 profile_serve.py [--arch recurrentgemma-9b|gemma2-9b]
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from collections import defaultdict
@@ -23,7 +29,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 # chip_smoke puts src/ on sys.path, so it is imported first
-from chip_smoke import ARCH, SERVE_MIX, check_device, make_engine, make_requests
+from chip_smoke import (ARCH, FAMILY_ARCH, FAMILY_MAX_LEN, FAMILY_MIX, SERVE_MIX,
+                        check_device, make_engine, make_requests)
 from repro_torch.configs import get_config
 from repro_torch.kernels import build
 from repro_torch.models import api
@@ -79,21 +86,39 @@ def report(label, prof, wall_ms, enqueue_ms, steps):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=ARCH, choices=(ARCH, FAMILY_ARCH))
+    args = ap.parse_args()
+    mix, max_len = (SERVE_MIX, 4096) if args.arch == ARCH else (FAMILY_MIX, FAMILY_MAX_LEN)
     check_device()
     build.load()
     device = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config(ARCH)
-    eng, _ = make_engine(cfg, torch.bfloat16, device, slots=4, max_len=4096)
-    for r in make_requests(cfg, [(p, 10_000) for p, _ in SERVE_MIX[:4]]):
+    cfg = get_config(args.arch)
+    eng, _ = make_engine(cfg, torch.bfloat16, device, slots=4, max_len=max_len)
+    for r in make_requests(cfg, [(p, 10_000) for p, _ in mix[:4]]):
         eng.submit(r)
     for _ in range(3):                      # admit all four, warm up decode
         eng.step()
     prefill, decode = api.make_prefill_step(cfg), api.make_decode_step(cfg)
 
     rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 2048)), device=device)
+    warm = []
+    for n, _ in mix:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)), device=device)
+        for _ in range(2):
+            lane = api.init_cache(cfg, 1, max_len, torch.bfloat16, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(eng.params, lane, {"tokens": toks})
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        warm.append(f"{ms:.1f} ({n})")
+        del lane
+    print(f"{args.arch} warm prefill ms (prompt length), second of two runs: " + ", ".join(warm))
+
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, mix[1][0])), device=device)
     for traced in (False, True):            # the first prefill warms up
-        lane = api.init_cache(cfg, 1, 4096, torch.bfloat16, device)
+        lane = api.init_cache(cfg, 1, max_len, torch.bfloat16, device)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -101,7 +126,7 @@ def main():
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-    report("prefill 2048 tokens", prof, 1e3 * (t2 - t0), 1e3 * (t1 - t0), 1)
+    report(f"prefill {mix[1][0]} tokens", prof, 1e3 * (t2 - t0), 1e3 * (t1 - t0), 1)
 
     toks = torch.as_tensor(eng.last_tok, device=device)[:, None]
     pos = torch.as_tensor(eng.positions, dtype=torch.int32, device=device)[:, None]

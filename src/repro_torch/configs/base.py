@@ -2,9 +2,10 @@
 
 Copies of `repro.configs.base.ModelConfig` (and the layer-kind constants),
 `StreamConfig` and `GenFVConfig`, kept here so the port never imports the
-JAX package. Only the `ModelConfig` fields and methods the ported serving
-path reads are carried: `reduced()`, `layer_kinds`, `padded_vocab_size` and
-`param_count()` compute exactly what their JAX counterparts compute.
+JAX package. `ModelConfig` carries every field of the JAX package's, and the methods
+the ported serving path reads: `reduced()`, `layer_kinds`,
+`padded_vocab_size` and `param_count()` compute exactly what their JAX
+counterparts compute.
 `GenFVConfig` and `StreamConfig` are data only, field for field and
 default for default the JAX package's.
 """
@@ -64,6 +65,7 @@ class ModelConfig:
     encoder_seq: int = 1500
     modality: str = "text"                   # text | vision | audio
     frontend_tokens: int = 0
+    schedule: str = "cosine"                 # cosine | wsd (training; unused by serving)
     # Pad the vocab up to a multiple (0 = off); padded logits are masked.
     pad_vocab_multiple: int = 0
     supports_long_context: bool = False

@@ -5,18 +5,24 @@
 
 `from_jax_params(cfg, tree)` takes the JAX parameter pytree with numpy
 leaves (`jax.tree.map(np.asarray, params)`) and returns the port's
-parameter dict. Leaf map, JAX path -> port path:
+parameter dict. Leaf map (`jax_leaf_map`), JAX path -> port path:
 
     embed                       -> embed
-    final_norm/scale            -> final_norm/scale
+    final_norm/<scale, bias>    -> final_norm/<scale, bias>
+    lm_head                     -> lm_head            (untied embeddings)
+    frontend_proj/<w1, w2>      -> frontend_proj/<w1, w2>   (llava)
     groups[i]/<path>  (row g)   -> layers[g * len(pattern) + i]/<path>
     rem[j]/<path>               -> layers[G * len(pattern) + j]/<path>
+    encoder/groups[0]/<path> (row l) -> encoder/layers[l]/<path>  (whisper)
+    encoder/final_norm/<...>    -> encoder/final_norm/<...>
 
 where G = num_layers // len(pattern) is the number of stacked pattern
-groups and <path> is the same below the layer (ln1, ln2, attn/wq, rec/w_a,
-rec/conv/w, mlp/w_gate, ...). Dense weights keep their [d_in, d_out]
-layout, because the port applies them as `x @ w` and stores no
-`nn.Linear`; nothing is transposed.
+groups and <path> is the same below the layer (ln1, ln2, lnx, attn/wq,
+attn/bq, cross/wk, rec/w_a, rec/conv/w, mlp/w_gate, moe/router,
+moe/w_up, ...). Dense weights keep their [d_in, d_out] layout, because
+the port applies them as `x @ w` and stores no `nn.Linear`; MoE stacks
+keep the expert dimension leading ([E, d, f]). Nothing is transposed.
+Any other top-level leaf raises.
 """
 from __future__ import annotations
 
@@ -27,14 +33,45 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.api import resolve_device
 from repro_torch.tree import tree_map
 
+_TOP = {"embed", "final_norm", "lm_head", "frontend_proj", "groups", "rem", "encoder"}
+
+
+def _row(a, g):
+    return np.asarray(a)[g]
+
+
+def jax_leaf_map(cfg, tree, row=_row):
+    """The port's parameter tree with each leaf the JAX leaf it is carried
+    from, unconverted; `row(a, g)` takes row g of a leaf stacked over
+    pattern groups (or encoder layers)."""
+    tfm.check_supported(cfg)
+    extra = set(tree) - _TOP
+    if extra:
+        raise ValueError(f"leaves the port does not carry: {sorted(extra)}")
+
+    def unstack(groups, n_rows):
+        return [tree_map(lambda a, g=g: row(a, g), grp)
+                for g in range(n_rows) for grp in groups]
+
+    plen = len(cfg.pattern)
+    groups = tree.get("groups", [])
+    layers = unstack(groups, cfg.num_layers // plen if groups else 0) + list(tree["rem"])
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, {cfg.name} has "
+                         f"{cfg.num_layers}")
+    out = {k: tree[k] for k in ("embed", "final_norm", "lm_head", "frontend_proj")
+           if k in tree}
+    out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": unstack(enc["groups"], cfg.encoder_layers),
+                          "final_norm": enc["final_norm"]}
+    return out
+
 
 def from_jax_params(cfg, tree, *, device="cuda"):
     """JAX parameter pytree (numpy leaves) -> port parameters on `device`,
     in the leaves' own dtypes."""
-    tfm.check_supported(cfg)
-    extra = set(tree) - {"embed", "final_norm", "groups", "rem"}
-    if extra:
-        raise ValueError(f"leaves the port does not carry: {sorted(extra)}")
     device = resolve_device(device)
 
     def leaf(a):
@@ -45,18 +82,7 @@ def from_jax_params(cfg, tree, *, device="cuda"):
             t = torch.from_numpy(np.array(a))
         return t.to(device)
 
-    plen = len(cfg.pattern)
-    groups = tree.get("groups", [])
-    G = cfg.num_layers // plen if groups else 0
-    layers = [tree_map(lambda a, g=g: leaf(np.asarray(a)[g]), groups[i])
-              for g in range(G) for i in range(plen)]
-    layers += [tree_map(leaf, p) for p in tree["rem"]]
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"tree holds {len(layers)} layers, {cfg.name} has "
-                         f"{cfg.num_layers}")
-    return {"embed": leaf(tree["embed"]),
-            "final_norm": tree_map(leaf, tree["final_norm"]),
-            "layers": layers}
+    return tree_map(leaf, jax_leaf_map(cfg, tree))
 
 
 def from_jax_cnn_params(tree, *, device="cuda"):

@@ -50,27 +50,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return tfm.init_cache(cfg, batch, max_len, dtype, resolve_device(device))
 
 
-def make_prefill_step(cfg: ModelConfig):
-    """prefill(params, cache, batch) -> (last_logits [B,V], cache)."""
+def make_prefill_step(cfg: ModelConfig, *, long_window: Optional[int] = None):
+    """prefill(params, cache, batch) -> (last_logits [B,V], cache).
+
+    long_window: the gemma2 long-context variant, where global layers
+    attend over the sliding window."""
 
     @torch.inference_mode()
     def prefill(params, cache, batch):
-        hidden, cache = tfm.forward(params, cfg, batch, cache=cache,
-                                    logits_mode="hidden")
+        hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache,
+                                       long_window=long_window, logits_mode="hidden")
         return tfm.unembed(params, cfg, hidden[:, -1:])[:, 0], cache
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, long_window: Optional[int] = None):
     """decode(params, cache, tokens [B,1], positions [B,1] int32)
     -> (logits [B,V], cache). One new token against the existing cache."""
 
     @torch.inference_mode()
     def decode(params, cache, tokens, positions):
         batch = {"tokens": tokens, "positions": positions}
-        hidden, cache = tfm.forward(params, cfg, batch, cache=cache,
-                                    logits_mode="hidden")
+        hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache,
+                                       long_window=long_window, logits_mode="hidden")
         return tfm.unembed(params, cfg, hidden)[:, 0], cache
 
     return decode

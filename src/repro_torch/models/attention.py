@@ -1,6 +1,6 @@
-"""Attention with RoPE, sliding window and ring-buffer KV caches (the
-counterpart of the JAX package's `models/attention.py`), with SDPA through
-`kernels.ops.flash_attention`.
+"""Attention with RoPE, sliding window, QKV bias, ring-buffer KV caches and
+encoder-decoder cross attention (the counterpart of the JAX package's
+`models/attention.py`), with SDPA through `kernels.ops.flash_attention`.
 
 All masking is position-based: each cached slot stores its absolute token
 position (-1 = empty), so causality, the window and ring-buffer wraparound
@@ -18,10 +18,14 @@ from repro_torch.models.layers import dense_init, rope
 
 def init_attention(gen, cfg, dtype, device):
     d, nq, nkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {"wq": dense_init(gen, d, nq * hd, dtype, device),
-            "wk": dense_init(gen, d, nkv * hd, dtype, device),
-            "wv": dense_init(gen, d, nkv * hd, dtype, device),
-            "wo": dense_init(gen, nq * hd, d, dtype, device)}
+    p = {"wq": dense_init(gen, d, nq * hd, dtype, device),
+         "wk": dense_init(gen, d, nkv * hd, dtype, device),
+         "wv": dense_init(gen, d, nkv * hd, dtype, device),
+         "wo": dense_init(gen, nq * hd, d, dtype, device)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros((n * hd,), dtype=dtype, device=device)
+    return p
 
 
 def init_kv_cache(cfg, kind: str, batch: int, max_len: int, dtype, device):
@@ -72,13 +76,36 @@ def _cache_write_prefill(cache, k_full, v_full, positions):
     return cache
 
 
-def attention(p, x, cfg, kind: str, positions, cache=None):
-    """x: [B,S,d]; positions: [B,S] int32. Returns (y [B,S,d], cache)."""
+def attention(p, x, cfg, kind: str, positions, cache=None, cross_kv=None,
+              causal: bool = True):
+    """x: [B,S,d]; positions: [B,S] int32. Returns (y [B,S,d], cache).
+
+    cross_kv: {"k", "v", "pos"} of the encoder frames for encoder-decoder
+    cross attention: no cache update, non-causal over the frames, and q
+    takes RoPE only under rmsnorm, as in the JAX package. `causal=False`
+    is the encoder's self-attention."""
     B, S, _ = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = rope((x @ p["wq"]).reshape(B, S, nq, hd), positions, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(B, S, nkv, hd), positions, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+    q = q.reshape(B, S, nq, hd)
+
+    if cross_kv is not None:
+        if cfg.norm == "rmsnorm":
+            q = rope(q, positions, cfg.rope_theta)
+        out = ops.flash_attention(q, cross_kv["k"], cross_kv["v"], positions,
+                                  cross_kv["pos"], causal=False, window=None,
+                                  softcap=cfg.attn_softcap)
+        return out.reshape(B, S, nq * hd) @ p["wo"], cache
+
+    k, v = x @ p["wk"], x @ p["wv"]
+    if "bk" in p:
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, nkv, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, nkv, hd)
     window = cfg.sliding_window if kind == ATTN_LOCAL else None
 
     if cache is not None:
@@ -88,6 +115,6 @@ def attention(p, x, cfg, kind: str, positions, cache=None):
     else:
         k_all, v_all, kv_pos = k, v, positions
 
-    out = ops.flash_attention(q, k_all, v_all, positions, kv_pos, causal=True,
+    out = ops.flash_attention(q, k_all, v_all, positions, kv_pos, causal=causal,
                               window=window, softcap=cfg.attn_softcap)
     return out.reshape(B, S, nq * hd) @ p["wo"], cache

@@ -33,6 +33,34 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return (x * (1.0 + p["scale"].float())).to(dt)
 
 
+def init_layernorm(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """Mean and (biased) variance in fp32, as the JAX package's two-pass
+    `jnp.mean` / `jnp.var`."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p["scale"].float() + p["bias"].float()).to(dt)
+
+
+def init_norm(cfg, dtype, device, d=None):
+    d = d if d is not None else cfg.d_model
+    if cfg.norm == "layernorm":
+        return init_layernorm(d, dtype, device)
+    return init_rmsnorm(d, dtype, device)
+
+
+def apply_norm(p, x):
+    """layernorm where the parameters carry a bias, else rmsnorm."""
+    return layernorm(p, x) if "bias" in p else rmsnorm(p, x)
+
+
 def softcap(x, cap):
     if cap is None:
         return x

@@ -1,109 +1,164 @@
-"""Decoder-only backbone of the port (the counterpart of the JAX package's
-`models/transformer.py`) for the attention and RG-LRU layer kinds.
+"""Decoder-only, encoder-decoder and VLM backbones of the port (the
+counterpart of the JAX package's `models/transformer.py`) for the
+attention, MoE and RG-LRU layer kinds.
 
 The JAX package scans over pattern groups with parameters stacked per
 group; here the layers are one list. Layer `g * len(pattern) + i` is group
 `g`, position `i`, and the remainder layers follow, so the list order is
 the JAX package's execution order (`convert.from_jax_params` unstacks
-accordingly). Caches mirror the same list.
+accordingly). Caches mirror the same list. The whisper encoder's layers
+are a second list under `params["encoder"]`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_MLSTM,
                                       BLOCK_RGLRU, BLOCK_SLSTM, ModelConfig)
 from repro_torch.models.attention import (attention, init_attention,
                                           init_kv_cache)
-from repro_torch.models.layers import (embed_init, init_mlp, init_rmsnorm, mlp,
-                                       rmsnorm, softcap)
+from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
+                                       init_mlp, init_norm, mlp, softcap)
+from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.rglru import init_rglru, init_rglru_state, rglru_block
 
-_NEXT_FAMILIES = "ROADMAP.md Queue 1 item 11 (the remaining LM families)"
+VISION_EMBED_DIM = 1024      # CLIP-ViT-L patch embedding width (llava stub)
+_XLSTM_ITEM = "ROADMAP.md Queue 1 item 2 (xLSTM)"
 
 
 def check_supported(cfg: ModelConfig):
     """Raise NotImplementedError for what the port does not carry yet."""
-    missing = []
-    if cfg.moe is not None:
-        missing.append("mixture-of-experts layers")
     if any(k in (BLOCK_MLSTM, BLOCK_SLSTM) for k in cfg.pattern):
-        missing.append("xLSTM blocks")
-    if cfg.is_encdec:
-        missing.append("the encoder-decoder backbone")
-    if cfg.modality == "vision":
-        missing.append("the vision front end")
-    if cfg.qkv_bias or cfg.norm != "rmsnorm" or not cfg.tie_embeddings:
-        missing.append("qkv bias, layernorm and untied embeddings")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet; see {_NEXT_FAMILIES}")
+            f"{cfg.name}: xLSTM blocks are not ported yet; see {_XLSTM_ITEM}")
 
 
-def _init_layer(gen, cfg: ModelConfig, kind: str, dtype, device):
-    p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, dtype, device)}
+# module-level MoE compute mode ("dense" is the reference's default)
+_MOE_MODE = {"mode": "dense"}
+
+
+def set_moe_mode(mode: str):
+    if mode not in ("dense", "sorted", "sorted_grouped"):
+        raise ValueError(f"unknown MoE mode {mode!r}")
+    _MOE_MODE["mode"] = mode
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, dtype, device, cross: bool):
+    p: Dict[str, Any] = {"ln1": init_norm(cfg, dtype, device)}
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         p["attn"] = init_attention(gen, cfg, dtype, device)
-        if cfg.d_ff > 0:
-            p["ln2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        if cross:
+            p["lnx"] = init_norm(cfg, dtype, device)
+            p["cross"] = init_attention(gen, cfg, dtype, device)
+        if cfg.moe is not None:
+            p["ln2"] = init_norm(cfg, dtype, device)
+            p["moe"] = init_moe(gen, cfg, dtype, device)
+        elif cfg.d_ff > 0:
+            p["ln2"] = init_norm(cfg, dtype, device)
             p["mlp"] = init_mlp(gen, cfg, dtype, device)
     elif kind == BLOCK_RGLRU:
         p["rec"] = init_rglru(gen, cfg, dtype, device)
-        p["ln2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        p["ln2"] = init_norm(cfg, dtype, device)
         p["mlp"] = init_mlp(gen, cfg, dtype, device)
     else:
         raise ValueError(kind)
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32):
-    """Random parameters on `gen.device`, with the JAX package's shapes and
-    scales (its random numbers are not reproduced)."""
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, num_layers=cfg.encoder_layers, pattern=(ATTN_GLOBAL,))
+
+
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
+                dtype=torch.float32, device=None):
+    """Random parameters with the JAX package's shapes and scales (its
+    random numbers are not reproduced), on `device` (default: `gen.device`;
+    `gen=None` with the meta device builds the shapes alone)."""
     check_supported(cfg)
-    device = gen.device
-    return {
-        "embed": embed_init(gen, cfg.padded_vocab_size, cfg.d_model, dtype, device),
-        "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
-        "layers": [_init_layer(gen, cfg, kind, dtype, device)
-                   for kind in cfg.layer_kinds],
+    device = gen.device if device is None else torch.device(device)
+    d = cfg.d_model
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.padded_vocab_size, d, dtype, device),
+        "final_norm": init_norm(cfg, dtype, device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, d, cfg.padded_vocab_size, dtype, device)
+    if cfg.modality == "vision":
+        # llava projector: 2-layer MLP from the CLIP width to d_model
+        params["frontend_proj"] = {"w1": dense_init(gen, VISION_EMBED_DIM, d, dtype, device),
+                                   "w2": dense_init(gen, d, d, dtype, device)}
+    params["layers"] = [_init_layer(gen, cfg, kind, dtype, device, cfg.is_encdec)
+                        for kind in cfg.layer_kinds]
+    if cfg.is_encdec:
+        enc_cfg = _encoder_cfg(cfg)
+        params["encoder"] = {
+            "layers": [_init_layer(gen, enc_cfg, ATTN_GLOBAL, dtype, device, False)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm(cfg, dtype, device)}
+    return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
-    """Decode cache: one dict per layer, batch first in every tensor."""
+    """Decode cache: one dict per layer, batch first in every tensor. An
+    encoder-decoder layer also holds `cross_kv` (zeros at position 0 over
+    `encoder_seq` frames, as in the JAX package, until the caller attaches
+    the encoder's K/V with `attach_cross_kv`)."""
     check_supported(cfg)
     layers = []
     for kind in cfg.layer_kinds:
         if kind in (ATTN_GLOBAL, ATTN_LOCAL):
-            layers.append({"kv": init_kv_cache(cfg, kind, batch, max_len, dtype, device)})
+            c = {"kv": init_kv_cache(cfg, kind, batch, max_len, dtype, device)}
+            if cfg.is_encdec:
+                shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+                c["cross_kv"] = {
+                    "k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device),
+                    "pos": torch.zeros((batch, cfg.encoder_seq), dtype=torch.int32,
+                                       device=device)}
+            layers.append(c)
         else:
             layers.append({"rec": init_rglru_state(cfg, batch, dtype, device)})
     return {"layers": layers}
 
 
-def _apply_layer(p, x, cfg, kind: str, positions, cache):
-    """Returns (x, new_cache)."""
+def _apply_layer(p, x, cfg, kind: str, positions, cache, *,
+                 long_window: Optional[int] = None):
+    """Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
-        h, kv = attention(p["attn"], rmsnorm(p["ln1"], x), cfg, kind, positions,
+        # long-context serving variant (gemma2): global layers take the
+        # sliding window, so long decode stays sub-quadratic
+        eff_kind = ATTN_LOCAL if long_window is not None and kind == ATTN_GLOBAL else kind
+        h, kv = attention(p["attn"], apply_norm(p["ln1"], x), cfg, eff_kind, positions,
                           cache=None if cache is None else cache["kv"])
         if cache is not None:
             new_cache["kv"] = kv
         x = x + h
-        if "mlp" in p:
-            x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x), cfg.mlp_type)
+        if "cross" in p:
+            h, _ = attention(p["cross"], apply_norm(p["lnx"], x), cfg, ATTN_GLOBAL,
+                             positions, cross_kv=cache["cross_kv"])
+            x = x + h
+        if "moe" in p:
+            h, aux_l = moe(p["moe"], apply_norm(p["ln2"], x), cfg, mode=_MOE_MODE["mode"])
+            aux = aux + cfg.moe.router_aux_loss * aux_l
+            x = x + h
+        elif "mlp" in p:
+            x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.mlp_type)
     elif kind == BLOCK_RGLRU:
-        h, rec = rglru_block(p["rec"], rmsnorm(p["ln1"], x), cfg,
+        h, rec = rglru_block(p["rec"], apply_norm(p["ln1"], x), cfg,
                              state=None if cache is None else cache["rec"])
         if cache is not None:
             new_cache["rec"] = rec
         x = x + h
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x), cfg.mlp_type)
+        x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.mlp_type)
     else:
         raise ValueError(kind)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _embed_tokens(params, cfg, tokens):
@@ -113,33 +168,99 @@ def _embed_tokens(params, cfg, tokens):
     return x
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            cache=None, logits_mode: str = "full"):
-    """Returns (logits_or_hidden, new_cache).
+def _arange_rows(B: int, n: int, device):
+    return torch.arange(n, dtype=torch.int32, device=device).repeat(B, 1)
 
-    batch keys: tokens [B,S]; optional positions [B,S] int32.
+
+def encode(params, cfg, frames):
+    """Whisper encoder over (stubbed) frame embeddings [B, F, d]:
+    non-causal self-attention and the MLP per layer, then the final norm."""
+    enc = params["encoder"]
+    x = frames
+    pos = _arange_rows(x.shape[0], x.shape[1], x.device)
+    for p in enc["layers"]:
+        h, _ = attention(p["attn"], apply_norm(p["ln1"], x), cfg, ATTN_GLOBAL, pos,
+                         causal=False)
+        x = x + h
+        x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.mlp_type)
+    return apply_norm(enc["final_norm"], x)
+
+
+def build_cross_kv(params, cfg, enc_out):
+    """Project the encoder output into each decoder layer's cross K/V
+    (no bias, as in the JAX package): a list with one {"k", "v", "pos"}
+    per decoder layer."""
+    B, F_, _ = enc_out.shape
+    pos = _arange_rows(B, F_, enc_out.device)
+    shape = (B, F_, cfg.num_kv_heads, cfg.head_dim)
+    return [{"k": (enc_out @ p["cross"]["wk"]).reshape(shape),
+             "v": (enc_out @ p["cross"]["wv"]).reshape(shape), "pos": pos}
+            for p in params["layers"]]
+
+
+def attach_cross_kv(cache, cross_kv):
+    """Put each decoder layer's cross K/V into the decode cache (the caller
+    does this before prefill, as the JAX package's tests do). Returns the
+    cache."""
+    for c, ckv in zip(cache["layers"], cross_kv):
+        c["cross_kv"] = ckv
+    return cache
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            cache=None, long_window: Optional[int] = None,
+            logits_mode: str = "full"):
+    """Returns (logits_or_hidden, new_cache, aux).
+
+    batch keys: tokens [B,S]; optional positions [B,S] int32; vision:
+    patch_embeds [B,P,1024], prepended after the projector, with the token
+    positions shifted by P; audio: frames [B,F,d], encoded here when no
+    cache is given (with a cache, the caller attaches the cross K/V).
     logits_mode: "full" -> [B,S,V] fp32 logits; "hidden" -> final hidden."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(params, cfg, tokens)
+
+    n_front = 0
+    if cfg.modality == "vision" and "patch_embeds" in batch:
+        fp = params["frontend_proj"]
+        pe = F.gelu(batch["patch_embeds"] @ fp["w1"], approximate="tanh") @ fp["w2"]
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+        n_front = pe.shape[1]
+        S = S + n_front
+
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device).repeat(B, 1)
+        positions = _arange_rows(B, S, x.device)
+    elif n_front:
+        positions = torch.cat([_arange_rows(B, n_front, x.device), positions + n_front], dim=1)
+
+    if cfg.is_encdec and cache is None:
+        # training path: encode, and carry the cross K/V in a fresh cache
+        cross_kv = build_cross_kv(params, cfg, encode(params, cfg, batch["frames"]))
+        cache = attach_cross_kv(init_cache(cfg, B, S, x.dtype, x.device), cross_kv)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers = []
     for i, kind in enumerate(cfg.layer_kinds):
-        x, c = _apply_layer(params["layers"][i], x, cfg, kind, positions,
-                            None if cache is None else cache["layers"][i])
+        x, c, a = _apply_layer(params["layers"][i], x, cfg, kind, positions,
+                               None if cache is None else cache["layers"][i],
+                               long_window=long_window)
         new_layers.append(c)
+        aux = aux + a
     if cache is not None:
         cache = {"layers": new_layers}
-    x = rmsnorm(params["final_norm"], x)
+    x = apply_norm(params["final_norm"], x)
+    if n_front:
+        x = x[:, n_front:]
     if logits_mode == "hidden":
-        return x, cache
-    return unembed(params, cfg, x), cache
+        return x, cache, aux
+    return unembed(params, cfg, x), cache, aux
 
 
 def unembed(params, cfg, x):
-    logits = softcap((x @ params["embed"].T).float(), cfg.final_softcap)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = softcap((x @ w).float(), cfg.final_softcap)
     if cfg.padded_vocab_size != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab_size, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)

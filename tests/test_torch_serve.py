@@ -344,7 +344,9 @@ def _forbidden(name):
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "check_flash_limits.py",
-        ROOT / "profile_genfv.py", ROOT / "ab_genfv_rounds.py"]
+        ROOT / "profile_genfv.py", ROOT / "ab_genfv_rounds.py",
+        ROOT / "genfv_paper_rounds.py"] + sorted(
+        (ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 10
     names = {str(p.relative_to(ROOT / "src")) for p in files if "src" in p.parts}
     assert {"repro_torch/fl/faults.py", "repro_torch/checkpoint/io.py",
@@ -353,7 +355,14 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch/optim/optimizers.py", "repro_torch/diffusion/unet.py",
             "repro_torch/diffusion/ddpm.py", "repro_torch/gen/sampler.py",
             "repro_torch/gen/service.py", "repro_torch/gen/pretrain.py",
-            "repro_torch/gen/calib.py"} <= names
+            "repro_torch/gen/calib.py", "repro_torch/models/moe.py",
+            "repro_torch/models/transformer.py", "repro_torch/configs/gemma2_9b.py",
+            "repro_torch/configs/whisper_tiny.py", "repro_torch/configs/grok_1_314b.py",
+            "repro_torch/configs/olmoe_1b_7b.py", "repro_torch/configs/qwen1_5_0_5b.py",
+            "repro_torch/configs/gemma_2b.py", "repro_torch/configs/minicpm_2b.py",
+            "repro_torch/configs/llava_next_mistral_7b.py"} <= names
+    assert {"torch_quickstart.py", "torch_genfv_cifar.py", "torch_diffusion_aigc.py",
+            "torch_serve_demo.py", "torch_scenario_sweep.py"} <= {p.name for p in files}
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -381,6 +390,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.gen, repro_torch.exp, repro_torch.optim, repro_torch.diffusion\n"
         "import repro_torch.fl.generator, repro_torch.fl.stream, repro_torch.core.convergence\n"
         "import repro_torch.exp.sweep, repro_torch.exp.analysis\n"
+        "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "from repro_torch.configs import get_config, list_archs\n"
+        "[get_config(a) for a in list_archs()]\n"
         "print('imported')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
