@@ -22,7 +22,16 @@ Phases, each fatal on failure:
      launches per prefill and per tick; F3 holds each of the eight
      families, reduced, on the card against the CPU (the MoE ones in each
      mode, llava with patches, whisper with cross K/V, gemma2 also under
-     its long-context variant);
+     its long-context variant); then phase `lm`: X1 serves xlstm-1.3b
+     at full width in bf16 (3,628,908,880 parameters, 4 slots, six
+     requests up to 2048 tokens) with its kernels a tick and the sLSTM
+     loop's share of a 2048-token prefill; X2 holds reduced xLSTM on the
+     card against the CPU and batching == isolated over one full-width
+     group; T1 trains qwen1.5-0.5b at full width in fp32 through
+     `launch.train.train` (20 steps, the loss must fall); T2 holds one
+     train step of six reduced families (and remat) on the card against
+     the CPU; T3 checks that training through the kernels is refused; the
+     port's kernels launch 0 times in the phase;
   5. check that continuous batching equals isolated generation on the card
      (full width, reduced depth, fp32), and that the reduced model on the
      card gives the logits it gives on the CPU;
@@ -63,6 +72,7 @@ line, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1972,10 +1982,10 @@ def family_inputs(cfg, B, S, seed):
     return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, S))), extras
 
 
-def family_card_matches_cpu(device, arch, long_window=None, what=""):
+def family_card_matches_cpu(device, arch, long_window=None, what="", S=80):
     """F3: the reduced family on the card, through the kernel, against the
     same weights on the CPU, through the plain versions the CPU tests hold
-    to the JAX package: prefill of 80 tokens (llava with 16 patches before
+    to the JAX package: prefill of S = 80 tokens (llava with 16 patches before
     them; whisper with the cross K/V of its encoded frames attached) and 4
     greedy decode steps on the CPU's tokens, two rows, fp32. Logits within
     1e-4 x max(1, max|logit|); the card's greedy token equals the CPU's
@@ -1983,7 +1993,7 @@ def family_card_matches_cpu(device, arch, long_window=None, what=""):
     error share, near-ties, flash launches)."""
     cfg = get_config(arch).reduced()
     cpu = torch.device("cpu")
-    B, S, steps, max_len = 2, 80, 4, 128
+    B, steps, max_len = 2, 4, S + 48
     params = {cpu: api.init_params(torch.Generator().manual_seed(4), cfg, device=cpu)}
     params[device] = tree_map(lambda x: x.to(device), params[cpu])
     prompt, extras = family_inputs(cfg, B, S, seed=4)
@@ -2079,6 +2089,276 @@ def families(device):
                         for name, (w, t, n) in f3},
         "phase_s": phase_s}}))
     return errors, by_shape
+
+
+# ---------------------------------------------------------------------------
+# Phase lm: xLSTM served at full width, and LM training
+# ---------------------------------------------------------------------------
+XLSTM_ARCH = "xlstm-1.3b"
+# X1's mix: (prompt length, new tokens); 6 requests on 4 slots, so two lanes
+# are reused after their requests retire
+XLSTM_MIX = [(2048, 16), (1024, 20), (700, 24), (256, 28), (128, 32), (33, 16)]
+XLSTM_MAX_LEN = 4096
+XLSTM_PARAMS = 3_628_908_880        # held by the JAX init and the port's
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_RUN = dict(steps=20, batch=8, seq=128)
+# T2: one of each block kind, reduced
+TRAIN_FAMILIES = ("qwen1.5-0.5b", "gemma2-9b", "recurrentgemma-9b", "xlstm-1.3b",
+                  "olmoe-1b-7b", "whisper-tiny")
+# T2's limits: loss and grad norm within TRAIN_TOL relative; each leaf's
+# update (new minus old parameters) within UPDATE_TOL of the leaf's largest
+# update, plus one float32 ulp of the leaf's largest parameter (the stored
+# parameters round at that step). The step is SGD at lr 1, so an update is
+# the clipped gradient itself and UPDATE_TOL is the gradient limit that
+# tests/test_torch_train.py holds the port to against the JAX package
+# (1e-4 x max|g|). AdamW would divide each element by its own gradient's
+# size, and an element with a small gradient would carry that gradient's
+# error at full weight.
+TRAIN_TOL = 1e-5
+UPDATE_TOL = 1e-4
+
+
+class _Timed:
+    """Wraps `fn`: syncs the device at both edges of each call and adds
+    its milliseconds to `ms`."""
+
+    def __init__(self, fn, device):
+        self.fn, self.device, self.ms = fn, device, []
+
+    def __call__(self, *args, **kw):
+        sync(self.device)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        sync(self.device)
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """`module.name` is `value` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield value
+    finally:
+        setattr(module, name, old)
+
+
+def kernels_per_call(fn, device, calls=3):
+    """Device kernels per call of `fn`, counted by torch.profiler over
+    `calls` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync(device)
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    return n / calls
+
+
+def xlstm_full_width(device):
+    """X1: xlstm-1.3b at its published widths and depth in bf16 (random
+    weights from seed 0), ServeEngine(slots=4) over XLSTM_MIX. Then, on
+    the served weights: the device kernels of one decode tick of 4 slots,
+    and the sLSTM loop's share of a 2048-token prefill (each sLSTM block
+    timed with the device synchronized at its edges)."""
+    from repro_torch.models import xlstm as xl
+    cfg = get_config(XLSTM_ARCH)
+    rec, params = serve(cfg, torch.bfloat16, device, XLSTM_MIX, slots=4,
+                        max_len=XLSTM_MAX_LEN)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    require(n_params == XLSTM_PARAMS, f"{n_params} parameters, want {XLSTM_PARAMS}")
+    cache = api.init_cache(cfg, 4, XLSTM_MAX_LEN, torch.bfloat16, device)
+    lane_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(cache)) // 4
+    decode = api.make_decode_step(cfg)
+    toks = torch.zeros((4, 1), dtype=torch.long, device=device)
+    pos = torch.full((4, 1), 40, dtype=torch.int32, device=device)
+    per_tick = kernels_per_call(lambda: decode(params, cache, toks, pos), device)
+    del cache
+    prefill = api.make_prefill_step(cfg)
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, size=(1, 2048)),
+                             device=device)
+    with patched(xl, "slstm_block", _Timed(xl.slstm_block, device)) as slstm:
+        sync(device)
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, api.init_cache(cfg, 1, XLSTM_MAX_LEN, torch.bfloat16, device),
+                            {"tokens": prompt})
+        sync(device)
+        total_ms = 1e3 * (time.perf_counter() - t0)
+    require(bool(torch.isfinite(logits).all()), "xlstm 2048-token prefill: non-finite logits")
+    n_slstm = cfg.layer_kinds.count("slstm")
+    require(len(slstm.ms) == n_slstm, f"{len(slstm.ms)} sLSTM calls, want {n_slstm}")
+    del params
+    dec = rec["decode_ms"]
+    rec.update(n_params=n_params, lane_mib=lane_bytes / 2 ** 20, kernels_per_tick=per_tick,
+               slstm_prefill_ms=sum(slstm.ms), prefill_2048_ms=total_ms)
+    print(f"lm X1 serve {XLSTM_ARCH} full width bf16: {n_params:,} parameters "
+          f"(ModelConfig.param_count() {cfg.param_count():,}), init {rec['init_s']:.1f} s, "
+          f"{rec['lane_mib']:.1f} MiB of recurrent state a lane")
+    print("  prefill ms per request (prompt length): " + ", ".join(
+        f"{ms:.1f} ({p})" for ms, (p, _) in zip(rec["prefill_ms"], XLSTM_MIX)))
+    print(f"  decode ticks {len(dec)}: median {statistics.median(dec):.2f} ms, "
+          f"mean {statistics.fmean(dec):.2f} ms, max {max(dec):.2f} ms; "
+          f"{per_tick:.0f} device kernels a tick (torch.profiler)")
+    print(f"  {rec['tokens']} tokens in {rec['run_s']:.2f} s: {rec['tokens'] / rec['run_s']:.1f} "
+          f"tokens/s; max memory allocated {rec['max_memory_bytes'] / 2**30:.2f} GiB")
+    print(f"  2048-token prefill {total_ms:.1f} ms with the sLSTM blocks synchronized, "
+          f"the {n_slstm} sLSTM loops {sum(slstm.ms):.1f} ms of it "
+          f"({sum(slstm.ms) / total_ms:.3f})")
+    print(f"  launches: flash {rec['flash_launches']}, scan {rec['scan_launches']}")
+    return rec
+
+
+def xlstm_card_matches_cpu(device):
+    """X2: reduced xlstm-1.3b on the card against the CPU (F3's check: a
+    300-token prefill, two mLSTM chunks, and 4 greedy decode steps, logits
+    within 1e-4 x max(1, max|logit|)); then continuous batching equals
+    isolated generation at full width over one group of 8 layers (7 mLSTM,
+    1 sLSTM) in fp32, which holds the engine's lane merge of the recurrent
+    state."""
+    worst, ties, launches = family_card_matches_cpu(device, XLSTM_ARCH, S=300)
+    batching_equals_isolated(dataclasses.replace(get_config(XLSTM_ARCH), num_layers=8),
+                             device)
+    return {"logit_error_share": worst, "near_ties": ties, "flash_launches": launches}
+
+
+def train_full_width(device):
+    """T1: the launcher's train() on qwen1.5-0.5b at its published widths
+    and depth in fp32 (AdamW, cosine, lr 3e-4, clip 1.0), TRAIN_RUN; each
+    step timed with the device synchronized at its edges."""
+    from repro_torch.launch import train as launch_train
+    torch.cuda.reset_peak_memory_stats(device)
+    steps = []
+
+    def timed_train_step(*args, **kw):
+        steps.append(_Timed(make(*args, **kw), device))
+        return steps[-1]
+
+    make = api.make_train_step
+    with patched(api, "make_train_step", timed_train_step):
+        params, losses = launch_train.train(TRAIN_ARCH, reduced=False, device=device,
+                                            **TRAIN_RUN)
+    peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+    ms = steps[0].ms
+    require(len(ms) == TRAIN_RUN["steps"], f"{len(ms)} timed steps")
+    require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    steady = statistics.median(ms[2:])
+    tokens = TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
+    rec = {"n_params": n_params, "losses": losses, "step_ms": ms, "median_ms": steady,
+           "tokens_per_s": tokens / (steady / 1e3), "max_memory_bytes": peak}
+    print(f"lm T1 train {TRAIN_ARCH} full width fp32: {n_params:,} parameters, "
+          f"{TRAIN_RUN['steps']} steps of {TRAIN_RUN['batch']} x {TRAIN_RUN['seq']} tokens")
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"  step ms: first {ms[0]:.1f}, second {ms[1]:.1f}, median of steps 2-19 "
+          f"{steady:.2f} (min {min(ms[2:]):.2f}, max {max(ms[2:]):.2f}); "
+          f"{rec['tokens_per_s']:.0f} tokens/s; max memory allocated {peak / 2**30:.2f} GiB")
+    return rec
+
+
+def _train_batch(cfg, seed, B=2, S=24):
+    """tokens, targets, a mask with zeros, and the family's extras, on the CPU."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 1))
+    _, extras = family_inputs(cfg, B, S, seed)
+    return {"tokens": torch.as_tensor(toks[:, :-1]), "targets": torch.as_tensor(toks[:, 1:]),
+            "mask": torch.as_tensor((rng.random((B, S)) < 0.8).astype(np.float32)), **extras}
+
+
+def _train_shares(a, b, before):
+    """(loss and grad-norm share, update share) of run b against run a,
+    each as a fraction of its limit."""
+    (pa, ma), (pb, mb) = a, b
+    metric = max(abs(ma[k] - mb[k]) / (TRAIN_TOL * max(abs(ma[k]), 1e-30))
+                 for k in ("loss", "grad_norm"))
+    update = 0.0
+    for x, y, p0 in zip(tree_leaves(pa), tree_leaves(pb), tree_leaves(before)):
+        dx = x.double() - p0.double()
+        limit = UPDATE_TOL * float(dx.abs().max()) + 2.0 ** -23 * float(x.abs().max())
+        update = max(update, float((x - y).abs().max()) / max(limit, 1e-30))
+    return metric, update
+
+
+def train_card_matches_cpu(device):
+    """T2: one make_train_step (SGD, lr 1, clip 1) of each of
+    TRAIN_FAMILIES, reduced, on the card against the same weights and
+    batch on the CPU; and remat=True against remat=False on the card,
+    both within the T2 limits above. Returns the shares of the limits per
+    family."""
+    from repro_torch import optim
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in TRAIN_FAMILIES:
+        cfg = get_config(arch).reduced()
+        params = api.init_params(torch.Generator().manual_seed(6), cfg, device=cpu)
+        batch = _train_batch(cfg, seed=6)
+        runs = {}
+        for name, dev, remat in (("cpu", cpu, False), ("card", device, False),
+                                 ("card remat", device, True)):
+            opt = optim.make_optimizer("sgd", optim.constant_schedule(1.0))
+            step = api.make_train_step(cfg, opt, remat=remat)
+            p = tree_map(lambda x: x.to(dev), params)
+            p, _, m = step(p, opt.init(p), {k: v.to(dev) for k, v in batch.items()})
+            runs[name] = (tree_map(lambda x: x.cpu(), p), {k: float(v) for k, v in m.items()})
+        shares = {}
+        for a, b in (("cpu", "card"), ("card", "card remat")):
+            metric, update = _train_shares(runs[a], runs[b], params)
+            require(metric <= 1.0 and update <= 1.0,
+                    f"lm T2 {arch}: {b} against {a}: loss and grad norm {metric:.3f} x "
+                    f"their limit, updates {update:.3f} x theirs")
+            shares[f"{b} vs {a}"] = {"loss_grad_norm": metric, "update": update}
+        out[arch] = shares
+        c, r = shares["card vs cpu"], shares["card remat vs card"]
+        print(f"lm T2 {arch}: loss {runs['cpu'][1]['loss']:.6f}, grad norm "
+              f"{runs['cpu'][1]['grad_norm']:.6f}; card against CPU: loss and grad norm "
+              f"{c['loss_grad_norm']:.3f}, updates {c['update']:.3f} x the limits; remat "
+              f"against none: {r['loss_grad_norm']:.3f}, {r['update']:.3f}")
+    return out
+
+
+def lm(device):
+    """Phase lm: X1 xlstm-1.3b served at full width, X2 xLSTM card against
+    CPU and batching == isolated, T1 qwen1.5-0.5b trained at full width
+    through the launcher, T2 one train step of six families card against
+    CPU (and remat), T3 training through the kernels refused. No kernel
+    of the port runs here: the launch counters stay 0."""
+    t_start = time.perf_counter()
+    print(f"lm on {card()}")
+    ops.flash_attention.launches = 0
+    ops.rglru_scan.launches = 0
+    x1 = xlstm_full_width(device)
+    torch.cuda.empty_cache()
+    x2 = xlstm_card_matches_cpu(device)
+    torch.cuda.empty_cache()
+    t1 = train_full_width(device)
+    torch.cuda.empty_cache()
+    t2 = train_card_matches_cpu(device)
+    from repro_torch import optim
+    try:
+        api.make_train_step(get_config(TRAIN_ARCH).reduced(),
+                            optim.make_optimizer("adamw", optim.constant_schedule(1e-3)),
+                            impl="kernel")
+        require(False, "lm T3: make_train_step(impl='kernel') did not raise")
+    except NotImplementedError as e:
+        print(f"lm T3: make_train_step(impl='kernel') raises NotImplementedError: {e}")
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "rglru_scan": ops.rglru_scan.launches}
+    require(not any(launches.values()), f"lm: the port's kernels launched: {launches}")
+    phase_s = time.perf_counter() - t_start
+    print(f"lm: phase {phase_s:.1f} s, launches {launches}")
+    print(json.dumps({"lm": {
+        "card": card(),
+        "xlstm_serve": {k: x1[k] for k in (
+            "n_params", "init_s", "run_s", "prefill_ms", "decode_ms", "tokens",
+            "max_memory_bytes", "flash_launches", "scan_launches", "lane_mib",
+            "kernels_per_tick", "slstm_prefill_ms", "prefill_2048_ms")},
+        "xlstm_card_vs_cpu": x2, "train": t1, "train_card_vs_cpu": t2,
+        "launches": launches, "phase_s": phase_s}}))
 
 
 # ---------------------------------------------------------------------------
@@ -2211,6 +2491,8 @@ def main():
     torch.cuda.empty_cache()
     family_errors, family_launches = families(device)
     errors.update(family_errors)
+    torch.cuda.empty_cache()
+    lm(device)
     torch.cuda.empty_cache()
     batching_equals_isolated(dataclasses.replace(get_config(ARCH), num_layers=3), device)
     card_matches_cpu(device)

@@ -1,10 +1,8 @@
 """Architecture registry of the port: `get_config("<arch-id>")`.
 
-Registered: the nine attention and RG-LRU architectures of the JAX
-package (minicpm-2b, llava-next-mistral-7b, gemma2-9b, whisper-tiny,
-grok-1-314b, gemma-2b, recurrentgemma-9b, qwen1.5-0.5b, olmoe-1b-7b).
-`xlstm-1.3b` is known but not ported: `get_config` raises
-NotImplementedError naming its ROADMAP item.
+Registered: the ten architectures of the JAX package (minicpm-2b,
+llava-next-mistral-7b, gemma2-9b, whisper-tiny, grok-1-314b, gemma-2b,
+xlstm-1.3b, recurrentgemma-9b, qwen1.5-0.5b, olmoe-1b-7b).
 """
 from __future__ import annotations
 
@@ -24,14 +22,10 @@ _ARCH_MODULES = {
     "whisper-tiny": "whisper_tiny",
     "grok-1-314b": "grok_1_314b",
     "gemma-2b": "gemma_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "olmoe-1b-7b": "olmoe_1b_7b",
-}
-# architectures of the JAX package whose blocks the port does not carry yet
-_NOT_PORTED = {
-    "xlstm-1.3b": "xLSTM blocks (mLSTM/sLSTM) are not ported yet; see "
-                  "ROADMAP.md Queue 1 item 2",
 }
 
 _cache: Dict[str, ModelConfig] = {}
@@ -43,8 +37,6 @@ def list_archs() -> List[str]:
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _cache:
-        if arch in _NOT_PORTED:
-            raise NotImplementedError(f"{arch}: {_NOT_PORTED[arch]}")
         if arch not in _ARCH_MODULES:
             raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
         mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

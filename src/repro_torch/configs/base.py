@@ -3,9 +3,9 @@
 Copies of `repro.configs.base.ModelConfig` (and the layer-kind constants),
 `StreamConfig` and `GenFVConfig`, kept here so the port never imports the
 JAX package. `ModelConfig` carries every field of the JAX package's, and the methods
-the ported serving path reads: `reduced()`, `layer_kinds`,
-`padded_vocab_size` and `param_count()` compute exactly what their JAX
-counterparts compute.
+the port reads: `reduced()`, `layer_kinds`, `padded_vocab_size`,
+`is_recurrent_decode`, `param_count()` and `active_param_count()` compute
+exactly what their JAX counterparts compute.
 `GenFVConfig` and `StreamConfig` are data only, field for field and
 default for default the JAX package's.
 """
@@ -94,6 +94,11 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def is_recurrent_decode(self) -> bool:
+        """True if decode state is recurrent (O(1)) rather than a KV cache."""
+        return self.family == "ssm"
+
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 vocab: int = 512, seq_cap: int = 128) -> "ModelConfig":
         """Smoke-test variant of the same family (same rule as the JAX
@@ -132,6 +137,14 @@ class ModelConfig:
 
     def param_count(self) -> int:
         return sum(self._param_terms().values())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        terms = self._param_terms()
+        if self.moe is not None:
+            frac = self.moe.experts_per_token / self.moe.num_experts
+            terms["moe_experts"] = int(terms["moe_experts"] * frac)
+        return sum(terms.values())
 
     def _param_terms(self) -> dict:
         d, hd = self.d_model, self.head_dim

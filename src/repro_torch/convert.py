@@ -19,21 +19,29 @@ parameter dict. Leaf map (`jax_leaf_map`), JAX path -> port path:
 where G = num_layers // len(pattern) is the number of stacked pattern
 groups and <path> is the same below the layer (ln1, ln2, lnx, attn/wq,
 attn/bq, cross/wk, rec/w_a, rec/conv/w, mlp/w_gate, moe/router,
-moe/w_up, ...). Dense weights keep their [d_in, d_out] layout, because
-the port applies them as `x @ w` and stores no `nn.Linear`; MoE stacks
-keep the expert dimension leading ([E, d, f]). Nothing is transposed.
+moe/w_up, cell/wq, cell/b_if, cell/r, ...). xlstm-1.3b has 6 groups of
+8 and no remainder. Dense weights keep their [d_in, d_out] layout,
+because the port applies them as `x @ w` and stores no `nn.Linear`; MoE
+stacks keep the expert dimension leading ([E, d, f]), the sLSTM's
+recurrent `cell/r` its [4, h, hd, hd]. Nothing is transposed.
 Any other top-level leaf raises.
+
+`cell_state_from_jax` / `cell_state_to_jax` carry one xLSTM layer's decode
+state between the JAX package's tuple and the port's dict (the order is
+`MLSTM_STATE` or `SLSTM_STATE`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.models import transformer as tfm
+from repro_torch.configs.base import BLOCK_MLSTM
 from repro_torch.models.api import resolve_device
 from repro_torch.tree import tree_map
 
 _TOP = {"embed", "final_norm", "lm_head", "frontend_proj", "groups", "rem", "encoder"}
+MLSTM_STATE = ("C", "n", "m", "conv")
+SLSTM_STATE = ("c", "n", "m", "h")
 
 
 def _row(a, g):
@@ -44,7 +52,6 @@ def jax_leaf_map(cfg, tree, row=_row):
     """The port's parameter tree with each leaf the JAX leaf it is carried
     from, unconverted; `row(a, g)` takes row g of a leaf stacked over
     pattern groups (or encoder layers)."""
-    tfm.check_supported(cfg)
     extra = set(tree) - _TOP
     if extra:
         raise ValueError(f"leaves the port does not carry: {sorted(extra)}")
@@ -83,6 +90,24 @@ def from_jax_params(cfg, tree, *, device="cuda"):
         return t.to(device)
 
     return tree_map(leaf, jax_leaf_map(cfg, tree))
+
+
+def _state_names(kind):
+    return MLSTM_STATE if kind == BLOCK_MLSTM else SLSTM_STATE
+
+
+def cell_state_from_jax(kind, state, *, device="cuda"):
+    """An mLSTM or sLSTM layer's JAX decode state (a tuple of arrays) ->
+    the port's dict on `device`."""
+    device = resolve_device(device)
+    return {name: torch.from_numpy(np.array(a)).to(device)
+            for name, a in zip(_state_names(kind), state)}
+
+
+def cell_state_to_jax(kind, state):
+    """The port's mLSTM or sLSTM state dict -> the JAX package's tuple of
+    numpy arrays."""
+    return tuple(state[name].detach().cpu().numpy() for name in _state_names(kind))
 
 
 def from_jax_cnn_params(tree, *, device="cuda"):

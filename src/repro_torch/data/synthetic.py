@@ -7,8 +7,9 @@ class structure is learnable by a CNN and by the class-conditional DDPM,
 and *label distributions* (what the paper's EMD policy consumes) behave
 exactly like the real thing.
 
-A copy of the image half of the JAX package's `data/synthetic.py`: the
-same seeds give the same arrays bit for bit.
+The token stream (`make_token_dataset`, `batch_tokens`) feeds LM
+training. A copy of the JAX package's `data/synthetic.py`: the same seeds
+give the same arrays bit for bit.
 """
 from __future__ import annotations
 
@@ -87,3 +88,29 @@ def make_image_dataset(name: str, n: int, seed: int = 0,
         p = np.roll(_class_pattern(name, int(c)), shifts[i], axis=(0, 1))
         imgs[i] = np.clip(0.8 * p + eps[i], -1.0, 1.0)
     return imgs, labels
+
+
+def make_token_dataset(vocab: int, n_tokens: int, seed: int = 0,
+                       order: int = 2) -> np.ndarray:
+    """Markov token stream with learnable structure (for LM smoke training)."""
+    rng = np.random.default_rng(seed)
+    # sparse deterministic transition: next = (a*prev + b) % vocab with noise
+    a, b = int(rng.integers(2, 97)), int(rng.integers(1, vocab))
+    toks = np.empty(n_tokens, np.int32)
+    toks[0] = rng.integers(0, vocab)
+    noise = rng.random(n_tokens) < 0.1
+    rand = rng.integers(0, vocab, size=n_tokens)
+    for i in range(1, n_tokens):
+        toks[i] = rand[i] if noise[i] else (a * int(toks[i - 1]) + b) % vocab
+    return toks
+
+
+def batch_tokens(tokens: np.ndarray, batch: int, seq: int, step: int,
+                 ) -> dict:
+    """Slice a [batch, seq+1] window -> {tokens, targets, mask}."""
+    need = batch * (seq + 1)
+    start = (step * need) % max(len(tokens) - need, 1)
+    chunk = tokens[start:start + need].reshape(batch, seq + 1)
+    return {"tokens": chunk[:, :-1].astype(np.int32),
+            "targets": chunk[:, 1:].astype(np.int32),
+            "mask": np.ones((batch, seq), np.float32)}

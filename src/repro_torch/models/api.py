@@ -1,7 +1,8 @@
 """Model API of the port (the counterpart of the JAX package's
-`models/api.py`): parameters, caches, and the prefill / decode steps used by
-the serving engine. Inference only: the steps run under
-`torch.inference_mode()`.
+`models/api.py`): parameters, caches, the prefill / decode steps the
+serving engine runs (under `torch.inference_mode()`, through the kernels
+by default), and the loss and train step the launcher runs (with
+autograd, through the plain torch route `impl="torch"`).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def resolve_device(device) -> torch.device:
@@ -48,6 +51,52 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda"):
     return tfm.init_cache(cfg, batch, max_len, dtype, resolve_device(device))
+
+
+def make_loss_fn(cfg: ModelConfig, *, impl: str = "torch", remat: bool = False):
+    """loss(params, batch) -> (ce + aux, {"ce", "aux"})."""
+    def loss(params, batch):
+        return tfm.loss_fn(params, cfg, batch, impl=impl, remat=remat)
+    return loss
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, impl: str = "torch",
+                    remat: bool = False, clip_norm: float = 1.0):
+    """Returns step(params, opt_state, batch) -> (params, opt_state, metrics)
+    with metrics {"loss", "ce", "aux", "grad_norm"}: the loss's gradient by
+    autograd, clipped to `clip_norm` in global norm, then the optimizer's
+    update. Parameters may come from `init_params` or a previous step.
+
+    impl="kernel" raises: the JAX package's Pallas kernels have no
+    gradient (ROADMAP.md Queue 3, reference defect 6), so neither do the
+    port's kernels, and training runs impl="torch" as the JAX package
+    trains on impl="jnp"."""
+    if impl == "kernel":
+        raise NotImplementedError(
+            "training through the kernels: the JAX package's Pallas kernels have no "
+            "gradient (ROADMAP.md Queue 3, reference defect 6), so the port's have "
+            "none either; train with impl='torch'")
+    loss_fn = make_loss_fn(cfg, impl=impl, remat=remat)
+
+    def step(params, opt_state, batch):
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            leaves = tree_leaves(live)
+            loss, parts = loss_fn(live, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss does not read (llava's projector without patches)
+        # gets a zero gradient, as jax.grad gives it
+        by_leaf = {id(p): torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, grads)}
+        with torch.no_grad():
+            grads, gn = clip_by_global_norm(tree_map(lambda p: by_leaf[id(p)], live),
+                                            clip_norm)
+            params, opt_state = optimizer.update(grads, opt_state, params)
+        metrics = {"loss": loss.detach(), "ce": parts["ce"].detach(),
+                   "aux": parts["aux"].detach(), "grad_norm": gn}
+        return params, opt_state, metrics
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, *, long_window: Optional[int] = None):

@@ -1,6 +1,14 @@
 """Attention with RoPE, sliding window, QKV bias, ring-buffer KV caches and
 encoder-decoder cross attention (the counterpart of the JAX package's
-`models/attention.py`), with SDPA through `kernels.ops.flash_attention`.
+`models/attention.py`). Two SDPA routes, picked by `impl`:
+
+  * "kernel" -- `kernels.ops.flash_attention` (the hand-written CUDA
+    kernel on the card, its plain version on the CPU); the default of
+    prefill, decode and serving;
+  * "torch" -- `sdpa_chunked`, the JAX package's `impl="jnp"` path: a
+    chunked online softmax in plain differentiable torch ops, which
+    training runs (the kernel has no backward, as the JAX package's
+    Pallas kernel has none).
 
 All masking is position-based: each cached slot stores its absolute token
 position (-1 = empty), so causality, the window and ring-buffer wraparound
@@ -11,9 +19,16 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+import torch.nn.functional as F
+
 from repro_torch.configs.base import ATTN_LOCAL
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dense_init, rope
+from repro_torch.models.layers import checkpointed, dense_init, rope
+
+NEG_INF = -2.0 ** 30  # large finite; avoids NaN from (-inf) - (-inf)
+KV_CHUNK = 1024       # the kv block `attention` gives `sdpa_chunked`
 
 
 def init_attention(gen, cfg, dtype, device):
@@ -76,14 +91,91 @@ def _cache_write_prefill(cache, k_full, v_full, positions):
     return cache
 
 
+def sdpa_chunked(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                 window: Optional[int] = None, attn_softcap=None,
+                 kv_chunk: int = 1024, q_chunk: int = 512):
+    """q: [B,Sq,nq,hd]; k, v: [B,Skv,nkv,hd]; q_pos: [B,Sq]; kv_pos: [B,Skv].
+
+    Flash-style double blocking, as the JAX package's `sdpa_chunked`: an
+    outer loop over q chunks, an inner loop over kv chunks, an online
+    softmax in fp32. kv is padded to a chunk multiple with slots at
+    position -1 (masked everywhere), q with rows at position -2^30 (the
+    causal mask removes every slot, the normaliser is clamped). Where a
+    graph is being built, each q block's kv sweep is recomputed in
+    backward instead of keeping its accumulators. Returns [B,Sq,nq,hd] in
+    q's dtype."""
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    scale = hd ** -0.5
+
+    kv_chunk = min(kv_chunk, Skv)
+    pad = (-Skv) % kv_chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    q_chunk = min(q_chunk, Sq)
+    qpad = (-Sq) % q_chunk
+    if qpad:
+        q = F.pad(q, (0, 0, 0, 0, 0, qpad))
+        q_pos = F.pad(q_pos, (0, qpad), value=-(2 ** 30))
+    qg = (q * scale).reshape(B, Sq + qpad, nkv, g, hd)
+
+    def q_block(q_i, qp_i):                                # [B,Qc,nkv,g,hd], [B,Qc]
+        acc = torch.zeros((B, q_i.shape[1], nkv, g, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, nkv, g, q_i.shape[1]), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for j in range(0, Skv + pad, kv_chunk):
+            k_j, v_j = k[:, j:j + kv_chunk], v[:, j:j + kv_chunk]
+            p_j = kv_pos[:, j:j + kv_chunk]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i.float(), k_j.float())
+            if attn_softcap is not None:
+                s = attn_softcap * torch.tanh(s / attn_softcap)
+            valid = p_j[:, None, None, None, :] >= 0
+            if causal:
+                rel = qp_i[:, None, None, :, None] - p_j[:, None, None, None, :]
+                valid = valid & (rel >= 0)
+                if window is not None:
+                    valid = valid & (rel < window)
+            s = torch.where(valid, s, NEG_INF)
+            # amax splits the gradient between tied maxima, as jnp.max does
+            m_i = torch.maximum(m, s.amax(-1))
+            p_ = torch.exp(s - m_i[..., None])
+            alpha = torch.exp(m - m_i)
+            l = l * alpha + p_.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bqhgd", p_, v_j.float())
+            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
+            m = m_i
+        l = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+        return (acc / l).to(q.dtype)
+
+    out = [checkpointed(q_block, qg[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
+           for i in range(0, Sq + qpad, q_chunk)]
+    return torch.cat(out, dim=1).reshape(B, Sq + qpad, nq, hd)[:, :Sq]
+
+
+def _sdpa(q, k, v, q_pos, kv_pos, *, causal, window, softcap, impl):
+    if impl == "kernel":
+        return ops.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, softcap=softcap)
+    if impl == "torch":
+        return sdpa_chunked(q, k, v, q_pos, kv_pos, causal=causal, window=window,
+                            attn_softcap=softcap, kv_chunk=KV_CHUNK)
+    raise ValueError(f"unknown impl {impl!r}; 'kernel' or 'torch'")
+
+
 def attention(p, x, cfg, kind: str, positions, cache=None, cross_kv=None,
-              causal: bool = True):
+              causal: bool = True, impl: str = "kernel"):
     """x: [B,S,d]; positions: [B,S] int32. Returns (y [B,S,d], cache).
 
     cross_kv: {"k", "v", "pos"} of the encoder frames for encoder-decoder
     cross attention: no cache update, non-causal over the frames, and q
     takes RoPE only under rmsnorm, as in the JAX package. `causal=False`
-    is the encoder's self-attention."""
+    is the encoder's self-attention. impl: "kernel" or "torch" (module
+    docstring)."""
     B, S, _ = x.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -94,9 +186,8 @@ def attention(p, x, cfg, kind: str, positions, cache=None, cross_kv=None,
     if cross_kv is not None:
         if cfg.norm == "rmsnorm":
             q = rope(q, positions, cfg.rope_theta)
-        out = ops.flash_attention(q, cross_kv["k"], cross_kv["v"], positions,
-                                  cross_kv["pos"], causal=False, window=None,
-                                  softcap=cfg.attn_softcap)
+        out = _sdpa(q, cross_kv["k"], cross_kv["v"], positions, cross_kv["pos"],
+                    causal=False, window=None, softcap=cfg.attn_softcap, impl=impl)
         return out.reshape(B, S, nq * hd) @ p["wo"], cache
 
     k, v = x @ p["wk"], x @ p["wv"]
@@ -115,6 +206,6 @@ def attention(p, x, cfg, kind: str, positions, cache=None, cross_kv=None,
     else:
         k_all, v_all, kv_pos = k, v, positions
 
-    out = ops.flash_attention(q, k_all, v_all, positions, kv_pos, causal=causal,
-                              window=window, softcap=cfg.attn_softcap)
+    out = _sdpa(q, k_all, v_all, positions, kv_pos, causal=causal, window=window,
+                softcap=cfg.attn_softcap, impl=impl)
     return out.reshape(B, S, nq * hd) @ p["wo"], cache

@@ -8,6 +8,16 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def checkpointed(fn, *args):
+    """fn(*args). Where a graph is being built, its activations are not
+    kept for backward but recomputed there, as under the JAX package's
+    `jax.checkpoint`; under no_grad or inference_mode it is a plain call."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype, device, scale=None):

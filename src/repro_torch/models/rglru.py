@@ -5,8 +5,11 @@ Block:  x -> [gate branch: GeLU(W_g x)]
            -> [rec branch: W_x x -> causal conv1d -> RG-LRU]
         y = W_out (gate * rec)
 
-Prefill runs the scan through `kernels.ops.rglru_scan`, with the incoming
-state as its initial state; decode is the one-step update.
+Prefill under impl="kernel" (the default) runs the scan through
+`kernels.ops.rglru_scan`, with the incoming state as its initial state;
+impl="torch" (the JAX package's `impl="jnp"`, which training runs) runs
+`lru_scan` and folds the incoming state in afterwards, as the JAX package
+does. Decode is the one-step update.
 """
 from __future__ import annotations
 
@@ -44,8 +47,25 @@ def _gates(p, u):
     return log_a, beta * i * uf
 
 
-def rglru_block(p, x, cfg, state=None):
+def lru_scan(log_a, b):
+    """Linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t over axis 1 from
+    h_0 = 0, as a loop over S in plain differentiable ops. The JAX
+    package's `lru_scan` combines the same terms in an associative scan's
+    tree order, so the two agree to float32 rounding, not bitwise.
+
+    log_a, b: [B, S, W] fp32. Returns h: [B, S, W] fp32."""
+    a = torch.exp(log_a)
+    h = b[:, 0]
+    hs = [h]
+    for t in range(1, b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def rglru_block(p, x, cfg, state=None, impl: str = "kernel"):
     """x: [B, S, d]. state: None or {"h": [B,W] fp32, "conv": [B,K-1,W]}.
+    impl: "kernel" or "torch" (module docstring).
 
     Returns (y [B,S,d], new_state)."""
     gate = F.gelu(x @ p["w_gate"], approximate="tanh")
@@ -56,11 +76,19 @@ def rglru_block(p, x, cfg, state=None):
         # decode: single-step update
         h = torch.exp(log_a[:, 0]) * state["h"].float() + b[:, 0]
         h_seq, new_h = h[:, None], h
-    else:
+    elif impl == "kernel":
         # the incoming state is the scan's initial state
         h0 = None if state is None else state["h"].float().contiguous()
         h_seq = ops.rglru_scan(log_a.contiguous(), b.contiguous(), h0)
         new_h = h_seq[:, -1]
+    elif impl == "torch":
+        h_seq = lru_scan(log_a, b)
+        if state is not None:
+            # fold the incoming state into the whole scan: h_t += (prod a) h0
+            h_seq = h_seq + torch.exp(torch.cumsum(log_a, dim=1)) * state["h"].float()[:, None]
+        new_h = h_seq[:, -1]
+    else:
+        raise ValueError(f"unknown impl {impl!r}; 'kernel' or 'torch'")
 
     y = (gate * h_seq.to(x.dtype)) @ p["w_out"]
     new_state = None

@@ -1,6 +1,6 @@
 """Decoder-only, encoder-decoder and VLM backbones of the port (the
-counterpart of the JAX package's `models/transformer.py`) for the
-attention, MoE and RG-LRU layer kinds.
+counterpart of the JAX package's `models/transformer.py`) for every layer
+kind: attention, MoE, RG-LRU, mLSTM and sLSTM; and the training loss.
 
 The JAX package scans over pattern groups with parameters stacked per
 group; here the layers are one list. Layer `g * len(pattern) + i` is group
@@ -8,10 +8,16 @@ group; here the layers are one list. Layer `g * len(pattern) + i` is group
 the JAX package's execution order (`convert.from_jax_params` unstacks
 accordingly). Caches mirror the same list. The whisper encoder's layers
 are a second list under `params["encoder"]`.
+
+`impl` picks the attention and scan route: "kernel" (the default of
+prefill, decode and serving) goes through `kernels.ops`; "torch" is the
+counterpart of the JAX package's `impl="jnp"`, plain differentiable torch
+ops (`attention.sdpa_chunked`, `rglru.lru_scan`), which training runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -19,22 +25,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_MLSTM,
                                       BLOCK_RGLRU, BLOCK_SLSTM, ModelConfig)
+from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import (attention, init_attention,
                                           init_kv_cache)
-from repro_torch.models.layers import (apply_norm, dense_init, embed_init,
-                                       init_mlp, init_norm, mlp, softcap)
+from repro_torch.models.layers import (apply_norm, checkpointed, dense_init,
+                                       embed_init, init_mlp, init_norm, mlp, softcap)
 from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.rglru import init_rglru, init_rglru_state, rglru_block
 
 VISION_EMBED_DIM = 1024      # CLIP-ViT-L patch embedding width (llava stub)
-_XLSTM_ITEM = "ROADMAP.md Queue 1 item 2 (xLSTM)"
-
-
-def check_supported(cfg: ModelConfig):
-    """Raise NotImplementedError for what the port does not carry yet."""
-    if any(k in (BLOCK_MLSTM, BLOCK_SLSTM) for k in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: xLSTM blocks are not ported yet; see {_XLSTM_ITEM}")
+XENT_CHUNK = 256
 
 
 # module-level MoE compute mode ("dense" is the reference's default)
@@ -64,6 +64,10 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, dtype, device, cross: bool):
         p["rec"] = init_rglru(gen, cfg, dtype, device)
         p["ln2"] = init_norm(cfg, dtype, device)
         p["mlp"] = init_mlp(gen, cfg, dtype, device)
+    elif kind == BLOCK_MLSTM:
+        p["cell"] = xl.init_mlstm(gen, cfg, dtype, device)
+    elif kind == BLOCK_SLSTM:
+        p["cell"] = xl.init_slstm(gen, cfg, dtype, device)
     else:
         raise ValueError(kind)
     return p
@@ -78,7 +82,6 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig,
     """Random parameters with the JAX package's shapes and scales (its
     random numbers are not reproduced), on `device` (default: `gen.device`;
     `gen=None` with the meta device builds the shapes alone)."""
-    check_supported(cfg)
     device = gen.device if device is None else torch.device(device)
     d = cfg.d_model
     params: Dict[str, Any] = {
@@ -106,8 +109,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
     """Decode cache: one dict per layer, batch first in every tensor. An
     encoder-decoder layer also holds `cross_kv` (zeros at position 0 over
     `encoder_seq` frames, as in the JAX package, until the caller attaches
-    the encoder's K/V with `attach_cross_kv`)."""
-    check_supported(cfg)
+    the encoder's K/V with `attach_cross_kv`). Recurrent layers hold their
+    state: {"rec": ...} for RG-LRU, {"cell": ...} for mLSTM and sLSTM."""
     layers = []
     for kind in cfg.layer_kinds:
         if kind in (ATTN_GLOBAL, ATTN_LOCAL):
@@ -120,14 +123,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
                     "pos": torch.zeros((batch, cfg.encoder_seq), dtype=torch.int32,
                                        device=device)}
             layers.append(c)
-        else:
+        elif kind == BLOCK_RGLRU:
             layers.append({"rec": init_rglru_state(cfg, batch, dtype, device)})
+        elif kind == BLOCK_MLSTM:
+            layers.append({"cell": xl.init_mlstm_state(cfg, batch, dtype, device)})
+        else:
+            layers.append({"cell": xl.init_slstm_state(cfg, batch, dtype, device)})
     return {"layers": layers}
 
 
-def _apply_layer(p, x, cfg, kind: str, positions, cache, *,
-                 long_window: Optional[int] = None):
-    """Returns (x, new_cache, aux_loss)."""
+def _apply_layer(p, x, cfg, kind: str, positions, cache, *, cross_kv=None,
+                 long_window: Optional[int] = None, impl: str = "kernel"):
+    """Returns (x, new_cache, aux_loss). cross_kv: the layer's encoder K/V
+    {"k", "v", "pos"}, which an encoder-decoder layer requires."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
@@ -135,13 +143,13 @@ def _apply_layer(p, x, cfg, kind: str, positions, cache, *,
         # sliding window, so long decode stays sub-quadratic
         eff_kind = ATTN_LOCAL if long_window is not None and kind == ATTN_GLOBAL else kind
         h, kv = attention(p["attn"], apply_norm(p["ln1"], x), cfg, eff_kind, positions,
-                          cache=None if cache is None else cache["kv"])
+                          cache=None if cache is None else cache["kv"], impl=impl)
         if cache is not None:
             new_cache["kv"] = kv
         x = x + h
         if "cross" in p:
             h, _ = attention(p["cross"], apply_norm(p["lnx"], x), cfg, ATTN_GLOBAL,
-                             positions, cross_kv=cache["cross_kv"])
+                             positions, cross_kv=cross_kv, impl=impl)
             x = x + h
         if "moe" in p:
             h, aux_l = moe(p["moe"], apply_norm(p["ln2"], x), cfg, mode=_MOE_MODE["mode"])
@@ -151,11 +159,19 @@ def _apply_layer(p, x, cfg, kind: str, positions, cache, *,
             x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.mlp_type)
     elif kind == BLOCK_RGLRU:
         h, rec = rglru_block(p["rec"], apply_norm(p["ln1"], x), cfg,
-                             state=None if cache is None else cache["rec"])
+                             state=None if cache is None else cache["rec"], impl=impl)
         if cache is not None:
             new_cache["rec"] = rec
         x = x + h
         x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.mlp_type)
+    elif kind in (BLOCK_MLSTM, BLOCK_SLSTM):
+        # pre-norm residual blocks: the block's own projections replace the MLP
+        block = xl.mlstm_block if kind == BLOCK_MLSTM else xl.slstm_block
+        h, st = block(p["cell"], apply_norm(p["ln1"], x), cfg,
+                      state=None if cache is None else cache["cell"])
+        if cache is not None:
+            new_cache["cell"] = st
+        x = x + h
     else:
         raise ValueError(kind)
     return x, new_cache, aux
@@ -172,7 +188,7 @@ def _arange_rows(B: int, n: int, device):
     return torch.arange(n, dtype=torch.int32, device=device).repeat(B, 1)
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, *, impl: str = "kernel"):
     """Whisper encoder over (stubbed) frame embeddings [B, F, d]:
     non-causal self-attention and the MLP per layer, then the final norm."""
     enc = params["encoder"]
@@ -180,7 +196,7 @@ def encode(params, cfg, frames):
     pos = _arange_rows(x.shape[0], x.shape[1], x.device)
     for p in enc["layers"]:
         h, _ = attention(p["attn"], apply_norm(p["ln1"], x), cfg, ATTN_GLOBAL, pos,
-                         causal=False)
+                         causal=False, impl=impl)
         x = x + h
         x = x + mlp(p["mlp"], apply_norm(p["ln2"], x), cfg.mlp_type)
     return apply_norm(enc["final_norm"], x)
@@ -208,14 +224,17 @@ def attach_cross_kv(cache, cross_kv):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            cache=None, long_window: Optional[int] = None,
-            logits_mode: str = "full"):
+            cache=None, impl: str = "kernel", remat: bool = False,
+            long_window: Optional[int] = None, logits_mode: str = "full"):
     """Returns (logits_or_hidden, new_cache, aux).
 
     batch keys: tokens [B,S]; optional positions [B,S] int32; vision:
     patch_embeds [B,P,1024], prepended after the projector, with the token
     positions shifted by P; audio: frames [B,F,d], encoded here when no
     cache is given (with a cache, the caller attaches the cross K/V).
+    impl: "kernel" or "torch" (module docstring); remat: recompute each
+    layer in backward (where a graph is being built) instead of keeping
+    its activations.
     logits_mode: "full" -> [B,S,V] fp32 logits; "hidden" -> final hidden."""
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -235,17 +254,24 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     elif n_front:
         positions = torch.cat([_arange_rows(B, n_front, x.device), positions + n_front], dim=1)
 
+    cross = [None] * cfg.num_layers
     if cfg.is_encdec and cache is None:
-        # training path: encode, and carry the cross K/V in a fresh cache
-        cross_kv = build_cross_kv(params, cfg, encode(params, cfg, batch["frames"]))
-        cache = attach_cross_kv(init_cache(cfg, B, S, x.dtype, x.device), cross_kv)
+        # training path: encode, and attend over the sequence itself. The
+        # JAX package writes the sequence into a fresh S-slot cache and
+        # attends over that, which is the same; without the cache nothing
+        # is written in place under autograd.
+        cross = build_cross_kv(params, cfg, encode(params, cfg, batch["frames"], impl=impl))
+    elif cfg.is_encdec:
+        cross = [c["cross_kv"] for c in cache["layers"]]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers = []
     for i, kind in enumerate(cfg.layer_kinds):
-        x, c, a = _apply_layer(params["layers"][i], x, cfg, kind, positions,
-                               None if cache is None else cache["layers"][i],
-                               long_window=long_window)
+        layer = functools.partial(_apply_layer, params["layers"][i], cfg=cfg, kind=kind,
+                                  positions=positions,
+                                  cache=None if cache is None else cache["layers"][i],
+                                  cross_kv=cross[i], long_window=long_window, impl=impl)
+        x, c, a = checkpointed(layer, x) if remat else layer(x)
         new_layers.append(c)
         aux = aux + a
     if cache is not None:
@@ -265,3 +291,43 @@ def unembed(params, cfg, x):
         pad = torch.arange(cfg.padded_vocab_size, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Loss: chunked-vocab cross entropy, never all [B,S,V] logits at once
+# ---------------------------------------------------------------------------
+def _xent_chunk(params, cfg, h, t, m):
+    logits = unembed(params, cfg, h)                       # [B,chunk,V] fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    return ((lse - ll) * m).sum(), m.sum()
+
+
+def chunked_xent(params, cfg, hidden, targets, mask, chunk: int = XENT_CHUNK):
+    """hidden: [B,S,d]; targets, mask: [B,S]. Mean masked cross entropy in
+    fp32 over sequence chunks, summed in order; where a graph is being
+    built each chunk's logits are recomputed in backward instead of kept
+    (at vocab 152k one [8,256,V] chunk is 1.2 GB)."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        l, c = checkpointed(_xent_chunk, params, cfg, hidden[:, sl], targets[:, sl],
+                            mask[:, sl])
+        tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, cfg, batch, *, impl: str = "torch", remat: bool = False):
+    """(ce + aux, {"ce", "aux"}) of a batch with "targets" [B,S] and an
+    optional "mask" [B,S] (default all ones)."""
+    hidden, _, aux = forward(params, cfg, batch, impl=impl, remat=remat,
+                             logits_mode="hidden")
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(batch["targets"], dtype=torch.float32)
+    ce = chunked_xent(params, cfg, hidden, batch["targets"], mask)
+    return ce + aux, {"ce": ce, "aux": aux}

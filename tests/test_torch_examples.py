@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+from repro_torch.launch import train as launch_train
+
 REPO_ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 # example -> (extra arguments, lines its quick run must print)
@@ -21,6 +23,11 @@ EXAMPLES = {
     "torch_genfv_cifar.py": (["--schemes", "genfv,fedavg"],
                              ["=== summary (mean of last 3 rounds) ===", "  genfv      acc=",
                               "  fedavg     acc="]),
+    "torch_train_backbone.py": ([], ["[train] olmoe-1b-7b (reduced):", "  step    5 loss",
+                                     "(improved)"]),
+    "torch_federated_lm.py": ([], ["[federated-lm] qwen1.5-0.5b (reduced), 4 clients",
+                                   "  round 1: global-eval loss",
+                                   "[federated-lm] done"]),
     "torch_diffusion_aigc.py": (["--ckpt-dir", "{tmp}"],
                                 ["[pretrain] 2 steps, final loss", "[sample] (10, 32, 32, 3)",
                                  "[calib] t0 = ", "[genfv+ddpm] steps=  2 final accuracy",
@@ -52,3 +59,19 @@ def test_example_refuses_to_run_without_a_card(name, tmp_path):
     r = _run(name, ["--quick"], tmp_path)
     assert r.returncode != 0
     assert "device 'cuda' requested but torch.cuda.is_available() is False" in r.stderr
+
+
+def test_launcher_main_trains_on_the_cpu(tmp_path, capsys):
+    """`python -m repro_torch.launch.train` as a function: six steps of the
+    reduced qwen1.5-0.5b, a checkpoint through the port's save_tree, and
+    exit code 0 because the loss fell."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    try:
+        ckpt = str(tmp_path / "qwen.npz")
+        assert launch_train.main(["--arch", "qwen1.5-0.5b", "--steps", "6", "--device", "cpu",
+                                  "--ckpt", ckpt]) == 0
+    finally:
+        torch.set_num_threads(n)
+    out = capsys.readouterr().out
+    assert "(improved)" in out and os.path.exists(ckpt), out[-2000:]

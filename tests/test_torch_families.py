@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import api as jax_api
 from repro.models import transformer as jax_tfm
 from repro.models.attention import init_kv_cache as jax_init_kv_cache
@@ -111,14 +112,18 @@ def _close(got, want, tol, what=""):
 # Configs and parameter shapes
 # ---------------------------------------------------------------------------
 def test_registry_resolves_the_nine_and_refuses_xlstm():
-    assert sorted(list_archs()) == sorted(ARCHS + ["recurrentgemma-9b"])
+    """The registry now resolves the ten architectures of the JAX package,
+    xlstm-1.3b included (held in tests/test_torch_xlstm.py); the name is
+    kept from when xlstm-1.3b was refused. An unknown name raises
+    KeyError."""
+    assert list_archs() == jax_list_archs()
+    assert sorted(list_archs()) == sorted(ARCHS + ["recurrentgemma-9b", "xlstm-1.3b"])
     for arch in list_archs():
         assert get_config(arch).name == arch
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        get_config("xlstm-1.3b")
-    xl = dataclasses.replace(get_config("gemma-2b"), pattern=("mlstm", "slstm"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        tfm.check_supported(xl)
+        assert get_config(arch).is_recurrent_decode == jax_get_config(arch).is_recurrent_decode
+        assert get_config(arch).active_param_count() == jax_get_config(arch).active_param_count()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("xlstm-7b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -201,7 +206,8 @@ def test_layers_match_jax(arch):
             jnp.asarray(pos), cj, impl="pallas", kv_chunk=1024, cross=cfg.is_encdec,
             decode=False, long_window=None)
         yt, ct, at = tfm._apply_layer(params["layers"][i], torch.from_numpy(x), cfg, kind,
-                                      torch.from_numpy(pos), ct)
+                                      torch.from_numpy(pos), ct,
+                                      cross_kv=ct.get("cross_kv"))
         _close(yt.numpy(), yj, LAYER_TOL, f"layer {i} ({kind})")
         _close(at.numpy(), aj, LAYER_TOL, f"layer {i} aux")
         for key in ("k", "v"):

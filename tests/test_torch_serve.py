@@ -360,9 +360,12 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch/configs/whisper_tiny.py", "repro_torch/configs/grok_1_314b.py",
             "repro_torch/configs/olmoe_1b_7b.py", "repro_torch/configs/qwen1_5_0_5b.py",
             "repro_torch/configs/gemma_2b.py", "repro_torch/configs/minicpm_2b.py",
-            "repro_torch/configs/llava_next_mistral_7b.py"} <= names
+            "repro_torch/configs/llava_next_mistral_7b.py",
+            "repro_torch/configs/xlstm_1_3b.py", "repro_torch/models/xlstm.py",
+            "repro_torch/launch/train.py", "repro_torch/optim/schedules.py"} <= names
     assert {"torch_quickstart.py", "torch_genfv_cifar.py", "torch_diffusion_aigc.py",
-            "torch_serve_demo.py", "torch_scenario_sweep.py"} <= {p.name for p in files}
+            "torch_serve_demo.py", "torch_scenario_sweep.py", "torch_train_backbone.py",
+            "torch_federated_lm.py"} <= {p.name for p in files}
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -391,6 +394,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.fl.generator, repro_torch.fl.stream, repro_torch.core.convergence\n"
         "import repro_torch.exp.sweep, repro_torch.exp.analysis\n"
         "import repro_torch.models.moe, repro_torch.models.transformer\n"
+        "import repro_torch.models.xlstm, repro_torch.launch.train, repro_torch.data\n"
         "from repro_torch.configs import get_config, list_archs\n"
         "[get_config(a) for a in list_archs()]\n"
         "print('imported')\n")
