@@ -31,7 +31,15 @@ Phases, each fatal on failure:
      `launch.train.train` (20 steps, the loss must fall); T2 holds one
      train step of six reduced families (and remat) on the card against
      the CPU; T3 checks that training through the kernels is refused; the
-     port's kernels launch 0 times in the phase;
+     port's kernels launch 0 times in the phase; then phase `launch`: L1
+     the dry-run (`launch.dryrun`) of the ten architectures x four assigned
+     shapes on the meta device for one card and the 16x16 mesh (whether
+     the arguments fit the card, the roofline terms); L2 seven pairs run at
+     full width in bf16, the batch cut only where one card forces it (wall
+     ms, the roofline share, peak memory against the predicted arguments,
+     flash and scan launches); the flash and scan shapes L2 adds held
+     against their plain versions; L3 the GenFV weighted all-reduce on a
+     one-rank NCCL group, bit for bit;
   5. check that continuous batching equals isolated generation on the card
      (full width, reduced depth, fp32), and that the reduced model on the
      card gives the logits it gives on the CPU;
@@ -62,8 +70,9 @@ Phases, each fatal on failure:
      (deterministic cuDNN), a fault-free divergence kept on both paths, and
      two pretrainings bitwise under the process's cuDNN flags;
   7. time each kernel at the serving shapes (recurrentgemma-9b's and
-     gemma2-9b's) beside its bound, its plain version and, for attention
-     without softcap, PyTorch's scaled_dot_product_attention.
+     gemma2-9b's) and at the launch phase's new shapes beside its bound,
+     its plain version and, for attention without softcap, PyTorch's
+     scaled_dot_product_attention.
 
 Run from the repository root:  python3 chip_smoke.py
 Without a CUDA device it exits non-zero and prints no result. It prints the
@@ -92,7 +101,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import GenFVConfig, StreamConfig  # noqa: E402
+from repro_torch.configs.base import H100, GenFVConfig, StreamConfig  # noqa: E402
 from repro_torch.core.emd import (add_weighted, aggregate_stacked_guarded,  # noqa: E402
                                   data_weights, emd_many)
 from repro_torch.fl import fleet as fleet_mod  # noqa: E402
@@ -122,10 +131,10 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.tree import FlatSpec, tree_leaves, tree_map  # noqa: E402
 
 ARCH = "recurrentgemma-9b"
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, bf16 tensor-core rate, and
-# the fp32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet), the dry-run's `H100`: HBM rate, bf16
+# tensor-core rate, and the fp32 rate outside the tensor cores.
+HBM_BYTES_PER_S = H100.hbm_bw
+PEAK_OPS_PER_S = {torch.bfloat16: H100.peak_flops, torch.float32: H100.peak_flops_fp32}
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SCAN_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:117"
@@ -244,7 +253,8 @@ def attn_inputs(gen, B, Sq, Skv, nq, nkv, hd, dtype, device):
 def slice_attention_inputs(kind, gen, device, dtype=torch.bfloat16):
     """The shapes serving gives the flash kernel: a decode tick of 4 slots
     against the 2048-slot window, and a 2500-token prefill against it (its
-    first 452 query rows have no valid slot)."""
+    first 452 query rows have no valid slot: the reference writes the ring
+    before it attends, ROADMAP Queue 3 item 14)."""
     cfg = get_config(ARCH)
     nq, nkv, hd, cap = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.sliding_window
     if kind == "decode":
@@ -282,13 +292,19 @@ def flash_limit(args, kw, want):
     return 2**-7 * want.abs() + 2**-8 * v_abs + 1e-5
 
 
-def flash_error(args, kw, device, what):
+def flash_error(args, kw, device, what, rows=None):
     """Run the kernel and its plain version on the same inputs, hold the
     difference to flash_limit elementwise and to FLASH_RMS_TOL, and return
     the max absolute error, the worst share of the limit, and the rms
-    share."""
+    share. With `rows` (query rows, which attend independently), the kernel
+    runs on all of q and its output at those rows is held against the plain
+    version run on those rows alone."""
     got = ops.flash_attention(*args, **kw)
     sync(device)
+    if rows is not None:
+        q, k, v, q_pos, kv_pos = args
+        got = got[:, rows]
+        args = (q[:, rows], k, v, q_pos[:, rows], kv_pos)
     want = flash_attention_ref(*args, **kw).float()
     require(bool(torch.isfinite(got).all()), f"flash attention {what}: non-finite output")
     diff = (got.float() - want).abs()
@@ -1801,8 +1817,9 @@ def genfv_stream_sweep(device):
 # ---------------------------------------------------------------------------
 FAMILY_ARCH = "gemma2-9b"
 # F2's mix: (prompt length, new tokens). 5000 wraps the 4096-slot local
-# ring (its first 904 queries find no valid slot on the local layers); 4096
-# fills it exactly.
+# ring (its first 904 queries find no valid slot on the local layers: the
+# reference's ring-first prefill, ROADMAP Queue 3 item 14); 4096 fills it
+# exactly.
 FAMILY_MIX = [(5000, 16), (4096, 20), (3000, 24), (700, 28), (128, 32), (33, 16)]
 FAMILY_MAX_LEN = 8192
 FAMILIES = ("qwen1.5-0.5b", "gemma-2b", "gemma2-9b", "minicpm-2b", "llava-next-mistral-7b",
@@ -1943,11 +1960,13 @@ class FlashTally:
     wrapper's own launch count increments to `counts`, keyed by ("decode"
     or "prefill", cache slots) by the wrapper's own rule: a call of fewer
     than DECODE_MAX_SQ query rows (a 33-token prompt too) runs the split-KV
-    decode kernel. `launches` is the wrapper's counter."""
+    decode kernel; with `by_batch`, also by (batch, head dim). `launches`
+    is the wrapper's counter."""
 
-    def __init__(self):
+    def __init__(self, by_batch=False):
         self.fn = ops.flash_attention
         self.counts = {}
+        self.by_batch = by_batch
 
     launches = property(lambda self: self.fn.launches,
                         lambda self, n: setattr(self.fn, "launches", n))
@@ -1956,6 +1975,8 @@ class FlashTally:
         n0 = self.fn.launches
         out = self.fn(q, k, *args, **kw)
         key = ("decode" if q.shape[1] < DECODE_MAX_SQ else "prefill", k.shape[1])
+        if self.by_batch:
+            key += (q.shape[0], q.shape[3])
         self.counts[key] = self.counts.get(key, 0) + self.fn.launches - n0
         return out
 
@@ -2362,6 +2383,254 @@ def lm(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase launch: the dry-run at the assigned shapes, and the all-reduce
+# ---------------------------------------------------------------------------
+# L2's pairs: (arch, shape, batch run); the batch is cut only where one card
+# forces it (the shape's own batch where it stays)
+LAUNCH_PAIRS = [("recurrentgemma-9b", "prefill_32k", 1), ("recurrentgemma-9b", "decode_32k", 128),
+                ("recurrentgemma-9b", "long_500k", 1), ("qwen1.5-0.5b", "train_4k", 1),
+                ("qwen1.5-0.5b", "prefill_32k", 1), ("qwen1.5-0.5b", "decode_32k", 8),
+                ("xlstm-1.3b", "long_500k", 1)]
+# the pairs whose arguments exceed one card (bf16)
+LAUNCH_TOO_BIG = (("gemma2-9b", "long_500k"), ("xlstm-1.3b", "decode_32k"))
+# the flash shapes L2 launches that no earlier phase does: name ->
+# (arch, batch, query rows, cache slots, kv positions "prefix" (0..S-1) or
+# "ring" (the last cap positions of S)); and the held query-row slices of
+# the prefills. rg_prefill_32k is the call the reference's ring-first
+# prefill makes (ROADMAP Queue 3 item 14): 30,720 of its 32,768 rows find no
+# slot and return the mean of V, and every other row but the last misses
+# part of its window, so it times that mask, not a windowed 32k prefill.
+LAUNCH_FLASH = {"qwen_prefill_32k": ("qwen1.5-0.5b", 1, 32768, 32768, "prefix"),
+                "rg_prefill_32k": ("recurrentgemma-9b", 1, 32768, 2048, "ring"),
+                "rg_decode_b128": ("recurrentgemma-9b", 128, 1, 2048, "ring"),
+                "qwen_decode_b8": ("qwen1.5-0.5b", 8, 1, 32768, "prefix")}
+LAUNCH_ROWS = (slice(0, 256), slice(16256, 16512), slice(30464, 30976), slice(32256, 32768))
+LAUNCH_SCAN = (1, 32768, 4096)
+PLAIN_SCORE_BYTES = 8 * 2**30   # the most fp32 scores one plain call may hold
+PLAIN_BLOCK = 2048              # query rows a call of the plain version takes past it
+L1_WORKERS = 7
+
+
+def _l1_worker_init():
+    torch.set_num_threads(1)
+
+
+def launch_dryrun_l1(device):
+    """L1: the dry-run of the ten architectures x four shapes on the meta
+    device, each pair traced once for the one-card mesh and the 16x16
+    description, in L1_WORKERS processes (the traces are host work, the
+    longest first). Returns the records by (arch, shape)."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+    from repro_torch.configs import INPUT_SHAPES, list_archs
+    from repro_torch.launch.dryrun import dryrun_pair, trace_ops
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    meshes = [make_host_mesh(), make_production_mesh()]
+    pairs = sorted(((a, s) for a in list_archs() for s in INPUT_SHAPES),
+                   key=lambda p: -trace_ops(get_config(p[0]), INPUT_SHAPES[p[1]])[0])
+    total = torch.cuda.get_device_properties(device).total_memory
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(L1_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_l1_worker_init) as pool:
+        futures = {p: pool.submit(dryrun_pair, *p, meshes, verbose=False) for p in pairs}
+        recs = {p: f.result() for p, f in futures.items()}
+    l1_s = time.perf_counter() - t0
+    for (arch, shape), (one, many) in sorted(recs.items()):
+        if one["skipped"]:
+            print(f"launch L1 {arch} x {shape}: skipped ({one['note']})")
+            continue
+        args = one["memory"]["argument_size_in_bytes"]
+        one["fits_card"] = args <= total
+        trace = (f"traced in {one['trace_s']:.1f} s ({one['trace_ops']:,} ops), FLOP counter "
+                 f"{one['flop_counter_global']:.4e}" if one["trace_s"] is not None
+                 else f"trace {one['trace']}")
+        print(f"launch L1 {arch} x {shape}: {one['kind']}, arguments {args / 2**30:.2f} GiB "
+              f"{'fit' if one['fits_card'] else 'do NOT fit'} one card "
+              f"({total / 2**30:.2f} GiB); 1x1: compute {one['compute_term_s']:.6g} s, memory "
+              f"{one['memory_term_s']:.6g} s, dominant {one['dominant']}; 16x16: "
+              f"{many['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB a card, compute "
+              f"{many['compute_term_s']:.6g} s, memory {many['memory_term_s']:.6g} s, dominant "
+              f"{many['dominant']}; analytic FLOPs {one['executed_flops_global']:.4e}; {trace}")
+    for pair in LAUNCH_TOO_BIG:
+        require(not recs[pair][0]["fits_card"], f"launch L1 {pair}: the arguments fit one card")
+    n_skip = sum(r[0]["skipped"] for r in recs.values())
+    n_untraced = sum(not r[0]["skipped"] and r[0]["trace_s"] is None for r in recs.values())
+    print(f"launch L1: {len(recs)} pairs ({n_skip} out of scope, {n_untraced} not traced) on the "
+          f"1x1 and 16x16 meshes in {l1_s:.1f} s on {L1_WORKERS} processes")
+    return recs, l1_s
+
+
+def launch_dryrun_l2(device):
+    """L2: each of LAUNCH_PAIRS run at full width in bf16 through
+    `dryrun_one(execute=True)`, random weights from seed 0, the batch cut
+    where one card forces it; flash launches tallied by kernel, cache
+    slots, batch and head dim. The arguments built equal the prediction to
+    the byte, outputs finite, the train step's loss finite. Measured peak
+    >= the predicted argument bytes follows from that equality (the
+    arguments are live when the peak is reset), so it holds by
+    construction. A prefill longer than a local window runs the
+    reference's ring-first mask (ROADMAP Queue 3 item 14), and its line
+    says how many rows that leaves without a slot."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.launch.mesh import make_host_mesh
+    host = make_host_mesh()
+    out = {}
+    ops.flash_attention.launches = 0
+    ops.rglru_scan.launches = 0
+    with FlashTally(by_batch=True) as tally:
+        for arch, shape, batch in LAUNCH_PAIRS:
+            scan0, flash0 = ops.rglru_scan.launches, tally.launches
+            rec = dryrun_one(arch, shape, mesh=host, execute=True, device=device, batch=batch,
+                             trace=False, verbose=False)
+            torch.cuda.empty_cache()
+            ex = rec["execute"]
+            cut = (f"batch {rec['batch_cut_from']} -> {batch}" if rec["batch_cut_from"]
+                   else f"batch {batch}, the full shape")
+            require(ex["outputs_finite"], f"launch L2 {arch} x {shape}: non-finite outputs")
+            # implied by the byte equality below (see the docstring)
+            require(ex["peak_bytes"] >= ex["predicted_argument_bytes"],
+                    f"launch L2 {arch} x {shape}: peak {ex['peak_bytes']} < predicted arguments "
+                    f"{ex['predicted_argument_bytes']}")
+            require(ex["argument_bytes"] == ex["predicted_argument_bytes"],
+                    f"launch L2 {arch} x {shape}: arguments {ex['argument_bytes']} != predicted "
+                    f"{ex['predicted_argument_bytes']}")
+            if rec["kind"] == "train":
+                require(math.isfinite(ex["loss"]), f"launch L2 {arch} x {shape}: loss {ex['loss']}")
+            ex["flash_launches"] = tally.launches - flash0
+            ex["scan_launches"] = ops.rglru_scan.launches - scan0
+            out[(arch, shape)] = rec
+            print(f"launch L2 {arch} x {shape} ({cut}) bf16: wall {ex['wall_ms']:.3f} ms (median "
+                  f"of {ex['runs']}: {', '.join(f'{x:.3f}' for x in ex['wall_ms_runs'])}); "
+                  f"compute term {rec['compute_term_s'] * 1e3:.4f} ms, memory term "
+                  f"{rec['memory_term_s'] * 1e3:.4f} ms, the larger over the wall "
+                  f"{ex['roofline_share']:.4f} ({ex['bound_by']})")
+            print(f"  arguments {ex['predicted_argument_bytes'] / 2**30:.3f} GiB predicted, peak "
+                  f"{ex['peak_bytes'] / 2**30:.3f} GiB, temp {ex['temp_bytes'] / 2**30:.3f} GiB; "
+                  f"flash launches {ex['flash_launches']}, scan launches {ex['scan_launches']}"
+                  + (f"; loss {ex['loss']:.4f}" if ex["loss"] is not None else ""))
+            cfg = get_config(arch)
+            seq = INPUT_SHAPES[shape].seq_len
+            if rec["kind"] == "prefill" and cfg.sliding_window and seq > cfg.sliding_window \
+                    and "local" in cfg.layer_kinds:
+                print(f"  the reference's ring-first prefill (ROADMAP Queue 3 item 14): in each "
+                      f"local layer {seq - cfg.sliding_window:,} of {seq:,} query rows find no "
+                      f"slot of the {cfg.sliding_window}-slot ring")
+    print("launch L2 flash launches by (step, cache slots, batch, head dim): "
+          f"{dict(sorted((' '.join(map(str, k)), n) for k, n in tally.counts.items()))}")
+    by_name = {}
+    for name, (arch, B, Sq, slots, _) in LAUNCH_FLASH.items():
+        cfg = get_config(arch)
+        key = ("decode" if Sq < DECODE_MAX_SQ else "prefill", slots, B, cfg.head_dim)
+        by_name[f"flash_attention.{name}"] = tally.counts.get(key, 0)
+    by_name["rglru_scan.prefill_32k"] = out[("recurrentgemma-9b", "prefill_32k")][
+        "execute"]["scan_launches"]
+    require(all(by_name.values()), f"a new shape saw no launch in L2: {by_name}")
+    return out, by_name
+
+
+def launch_flash_inputs(name, gen, device):
+    """The flash call L2's `name` makes, on random bf16 inputs."""
+    arch, B, Sq, slots, kind = LAUNCH_FLASH[name]
+    cfg = get_config(arch)
+    S = 32768
+    q, k, v = attn_inputs(gen, B, Sq, slots, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                          torch.bfloat16, device)
+    q_pos = torch.arange(S - Sq, S, dtype=torch.int32, device=device)[None].repeat(B, 1)
+    if kind == "ring":
+        kv_pos = ring_positions([S] * B, slots, device)
+        kw = {"window": cfg.sliding_window}
+    else:
+        kv_pos = torch.arange(slots, dtype=torch.int32, device=device)[None].repeat(B, 1)
+        kw = {"window": None}
+    return (q, k, v, q_pos, kv_pos), kw
+
+
+def launch_kernels(device):
+    """Each new shape of L2 against its plain version: the prefills on
+    LAUNCH_ROWS (rows with no valid slot, rows at the window's edge, the
+    last rows), the decodes whole, the scan at LAUNCH_SCAN with h0."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    errors = {}
+    for name, (_, _, Sq, _, _) in LAUNCH_FLASH.items():
+        args, kw = launch_flash_inputs(name, gen, device)
+        worst = rms = err = 0.0
+        for rows in (LAUNCH_ROWS if Sq > 1 else (None,)):
+            e, w, r = flash_error(args, kw, device, f"launch {name}", rows=rows)
+            err, worst, rms = max(err, e), max(worst, w), max(rms, r)
+        errors[f"flash_attention.{name}"] = err
+        held = (f"query rows {', '.join(f'{r.start}-{r.stop - 1}' for r in LAUNCH_ROWS)}"
+                if Sq > 1 else "all rows")
+        print(f"launch {name}: q {list(args[0].shape)} kv {list(args[1].shape)} bf16, {held}: max "
+              f"error {err:.3e}, {worst:.3f} x the limit, rms {rms:.3e}")
+        del args
+        torch.cuda.empty_cache()
+    err = scan_error(LAUNCH_SCAN, gen, device, with_h0=True)
+    require(err < 1e-5, f"rglru scan {LAUNCH_SCAN} with h0: max error {err:.3e} >= 1e-5")
+    errors["rglru_scan.prefill_32k"] = err
+    print(f"launch scan {LAUNCH_SCAN} fp32 with h0: max error {err:.3e}")
+    return errors
+
+
+def launch_allreduce(device):
+    """L3: genfv_weighted_allreduce on a one-rank NCCL group on the card:
+    the result is the rank's own weighted model, bit for bit."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import genfv_weighted_allreduce
+    gen = torch.Generator(device=device).manual_seed(11)
+    model = {"w": torch.randn((4096, 1024), generator=gen, device=device).to(torch.bfloat16),
+             "layers": [{"b": torch.randn((1024,), generator=gen, device=device)}
+                        for _ in range(3)]}
+    weight = 0.3125
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cuda = device.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, **({"device_id": device} if cuda else {}))
+    try:
+        got = genfv_weighted_allreduce(model, weight)
+        sync(device)
+    finally:
+        dist.destroy_process_group()
+    w = torch.tensor(weight, dtype=torch.float32, device=device)
+    want = tree_map(lambda x: x.float() * w, model)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    require(same, "launch L3: the one-rank all-reduce is not the rank's weighted model")
+    print(f"launch L3: genfv_weighted_allreduce on a one-rank {'NCCL' if cuda else 'gloo'} group, "
+          f"{sum(t.numel() for t in tree_leaves(model)):,} values: equal to weight x model "
+          f"bit for bit")
+
+
+def launch(device):
+    """Phase launch: L1 the dry-run of all 40 pairs, L2 seven pairs run at
+    full width on the card, the new kernel shapes held, L3 the all-reduce."""
+    t_start = time.perf_counter()
+    print(f"launch on {card()}")
+    l1, l1_s = launch_dryrun_l1(device)
+    l2, launches = launch_dryrun_l2(device)
+    torch.cuda.empty_cache()
+    errors = launch_kernels(device)
+    launch_allreduce(device)
+    phase_s = time.perf_counter() - t_start
+    print(f"launch: phase {phase_s:.1f} s (L1 {l1_s:.1f} s)")
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / "launch_records.json", "w") as f:
+        json.dump({"card": card(), "l1": [r for recs in l1.values() for r in recs],
+                   "l2": list(l2.values())}, f, indent=1)
+    print(json.dumps({"launch": {
+        "card": card(), "phase_s": phase_s, "l1_s": l1_s,
+        "l2": {f"{a} x {s}": {k: r["execute"][k] for k in (
+            "batch", "wall_ms", "roofline_share", "bound_by", "predicted_argument_bytes",
+            "peak_bytes", "temp_bytes", "flash_launches", "scan_launches", "loss")}
+            | {"compute_term_s": r["compute_term_s"], "memory_term_s": r["memory_term_s"]}
+            for (a, s), r in l2.items()},
+        "launches_by_shape": launches}}))
+    return errors, launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: timing
 # ---------------------------------------------------------------------------
 def time_ms(fn, device, runs=20, warmup=3):
@@ -2390,8 +2659,10 @@ def time_ms(fn, device, runs=20, warmup=3):
 def flash_bound(q, k, q_pos, kv_pos, window, causal=True):
     """Least time for this call's work on an H100: each needed input byte
     read once and the output written once, against the operations that
-    the mask leaves (4*hd per valid (query, key, head), 2*hd per slot for a
-    row with no valid slot, which averages V)."""
+    the mask leaves: 4*hd per valid (query, key, head), and for the rows
+    with no valid slot, whose output is the mean of V over the filled
+    slots, one add per element of those slots' V, once per batch row (the
+    mean serves every such row of the batch row)."""
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     valid = (kv_pos[:, None, :] >= 0).expand(B, Sq, Skv)
@@ -2400,8 +2671,10 @@ def flash_bound(q, k, q_pos, kv_pos, window, causal=True):
         valid = valid & (rel >= 0)
         if window is not None:
             valid = valid & (rel < window)
+        del rel
     empty_rows = ~valid.any(-1)                                    # [B, Sq]
-    ops_ = nq * hd * (4 * int(valid.sum()) + 2 * Skv * int(empty_rows.sum()))
+    filled = int((kv_pos >= 0)[empty_rows.any(1)].sum())
+    ops_ = nq * hd * 4 * int(valid.sum()) + nkv * hd * filled
     slots_read = int((valid.any(1) | empty_rows.any(1, keepdim=True)).sum())
     elt = q.element_size()
     bytes_ = (2 * q.numel() * elt + 2 * slots_read * nkv * hd * elt
@@ -2419,8 +2692,25 @@ def sdpa_call(q, k, v, q_pos, kv_pos, window):
     kh = k.transpose(1, 2).repeat_interleave(nq // nkv, dim=1).contiguous()
     vh = v.transpose(1, 2).repeat_interleave(nq // nkv, dim=1).contiguous()
     rel = q_pos[:, :, None] - kv_pos[:, None, :]
-    mask = ((kv_pos[:, None, :] >= 0) & (rel >= 0) & (rel < window))[:, None]
+    mask = (kv_pos[:, None, :] >= 0) & (rel >= 0)
+    if window is not None:
+        mask &= rel < window
+    mask = mask[:, None]
+    del rel
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
+def plain_call(args, kw):
+    """The plain version on the same inputs: one call, or, where one call's
+    fp32 scores would pass PLAIN_SCORE_BYTES, blocks of PLAIN_BLOCK query
+    rows."""
+    q, k, v, q_pos, kv_pos = args
+    B, Sq, nq, _ = q.shape
+    if B * nq * Sq * k.shape[1] * 4 <= PLAIN_SCORE_BYTES:
+        return lambda: flash_attention_ref(*args, **kw)
+    return lambda: [flash_attention_ref(q[:, i:i + PLAIN_BLOCK], k, v,
+                                        q_pos[:, i:i + PLAIN_BLOCK], kv_pos, **kw)
+                    for i in range(0, q.shape[1], PLAIN_BLOCK)]
 
 
 def _flash_entry(name, args, kw, device, errors, launches, library):
@@ -2430,14 +2720,32 @@ def _flash_entry(name, args, kw, device, errors, launches, library):
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": launches, "max_abs_err": errors[f"flash_attention.{name}"],
             "ms": time_ms(lambda: ops.flash_attention(*args, **kw), device),
-            "plain_ms": time_ms(lambda: flash_attention_ref(*args, **kw), device),
+            "plain_ms": time_ms(plain_call(args, kw), device),
             "bound_ms": bound, "bound_by": by,
             "library_ms": None if library is None else time_ms(library, device),
             "shape": f"q {list(q.shape)} kv {list(k.shape)} bf16"
-                     + (f" softcap {kw['softcap']:g}" if kw.get("softcap") else "")}
+                     + (f" softcap {kw['softcap']:g}" if kw.get("softcap") else "")
+                     + (f", plain in blocks of {PLAIN_BLOCK} query rows"
+                        if q.numel() // q.shape[3] * k.shape[1] * 4 > PLAIN_SCORE_BYTES
+                        else "")}
 
 
-def time_kernels(device, errors, launches, family_launches):
+def _scan_entry(name, shape, gen, device, errors, launches):
+    """A scan row at `shape` with h0, as the serving path passes it."""
+    la, b, h0 = scan_inputs(shape, gen, device, with_h0=True)
+    t_bytes = (3 * la.numel() + h0.numel()) * 4 / HBM_BYTES_PER_S
+    t_ops = 3 * la.numel() / PEAK_OPS_PER_S[torch.float32]
+    return {"name": f"rglru_scan.{name}", "route": "cuda", "source": SCAN_SOURCE,
+            "replaces": SCAN_REPLACES, "launches": launches,
+            "max_abs_err": errors[f"rglru_scan.{name}"],
+            "ms": time_ms(lambda: ops.rglru_scan(la, b, h0), device),
+            "plain_ms": time_ms(lambda: rglru_scan_ref(la, b, h0), device),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": f"{list(shape)} fp32 with h0"}, (la, b, h0)
+
+
+def time_kernels(device, errors, launches, family_launches, launch_launches):
     """The kernels at the serving shapes of phase 4 and of F2. SDPA has no
     softcap, so the gemma2-9b shapes (softcap 50) have no library time. The
     scan is timed right after the two recurrentgemma-9b rows and once more
@@ -2452,18 +2760,8 @@ def time_kernels(device, errors, launches, family_launches):
                                     sdpa_call(*args, kw["window"])))
         del args
     # the serving path passes the incoming state h0
-    shape = (1, 2500, 4096)
-    la, b, h0 = scan_inputs(shape, gen, device, with_h0=True)
-    t_bytes = (3 * la.numel() + h0.numel()) * 4 / HBM_BYTES_PER_S
-    t_ops = 3 * la.numel() / PEAK_OPS_PER_S[torch.float32]
-    scan = {"name": "rglru_scan.prefill", "route": "cuda", "source": SCAN_SOURCE,
-            "replaces": SCAN_REPLACES, "launches": launches["rglru_scan.prefill"],
-            "max_abs_err": errors["rglru_scan.prefill"],
-            "ms": time_ms(lambda: ops.rglru_scan(la, b, h0), device),
-            "plain_ms": time_ms(lambda: rglru_scan_ref(la, b, h0), device),
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": f"{list(shape)} fp32 with h0"}
+    scan, (la, b, h0) = _scan_entry("prefill", (1, 2500, 4096), gen, device, errors,
+                                    launches["rglru_scan.prefill"])
     for name, _ in FAMILY_SHAPES:
         args, kw = family_serving_inputs(name, gen, device)
         entries.append(_flash_entry(name, args, kw, device, errors,
@@ -2474,6 +2772,18 @@ def time_kernels(device, errors, launches, family_launches):
     print(f"rglru_scan.prefill timed again after the gemma2-9b rows: "
           f"{time_ms(lambda: ops.rglru_scan(la, b, h0), device):.4f} ms "
           f"(the kernels line keeps the first, {scan['ms']:.4f} ms)")
+    del la, b, h0
+    # the launch phase's new shapes (no softcap: SDPA times each)
+    for name in LAUNCH_FLASH:
+        args, kw = launch_flash_inputs(name, gen, device)
+        entries.append(_flash_entry(name, args, kw, device, errors,
+                                    launch_launches[f"flash_attention.{name}"],
+                                    sdpa_call(*args, kw["window"])))
+        del args
+        torch.cuda.empty_cache()
+    entries.append(_scan_entry("prefill_32k", LAUNCH_SCAN, gen, device, errors,
+                               launch_launches["rglru_scan.prefill_32k"])[0])
+    torch.cuda.empty_cache()
     for e in entries:
         print(f"{e['name']} ({e['shape']}): {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
@@ -2494,12 +2804,15 @@ def main():
     torch.cuda.empty_cache()
     lm(device)
     torch.cuda.empty_cache()
+    launch_errors, launch_launches = launch(device)
+    errors.update(launch_errors)
+    torch.cuda.empty_cache()
     batching_equals_isolated(dataclasses.replace(get_config(ARCH), num_layers=3), device)
     card_matches_cpu(device)
     torch.cuda.empty_cache()
     genfv(device)
     torch.cuda.empty_cache()
-    entries = time_kernels(device, errors, rec["launches"], family_launches)
+    entries = time_kernels(device, errors, rec["launches"], family_launches, launch_launches)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

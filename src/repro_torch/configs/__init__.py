@@ -1,4 +1,5 @@
-"""Architecture registry of the port: `get_config("<arch-id>")`.
+"""Architecture registry of the port: `get_config("<arch-id>")` and shape
+lookup.
 
 Registered: the ten architectures of the JAX package (minicpm-2b,
 llava-next-mistral-7b, gemma2-9b, whisper-tiny, grok-1-314b, gemma-2b,
@@ -10,8 +11,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exported)
-    ATTN_GLOBAL, ATTN_LOCAL, BLOCK_MLSTM, BLOCK_RGLRU, BLOCK_SLSTM,
-    ModelConfig, MoEConfig,
+    ATTN_GLOBAL, ATTN_LOCAL, BLOCK_MLSTM, BLOCK_RGLRU, BLOCK_SLSTM, H100,
+    HardwareSpec, INPUT_SHAPES, InputShape, ModelConfig, MoEConfig,
 )
 
 # arch-id -> module name under repro_torch.configs
@@ -42,3 +43,7 @@ def get_config(arch: str) -> ModelConfig:
         mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
         _cache[arch] = mod.CONFIG
     return _cache[arch]
+
+
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]

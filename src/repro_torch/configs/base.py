@@ -2,7 +2,10 @@
 
 Copies of `repro.configs.base.ModelConfig` (and the layer-kind constants),
 `StreamConfig` and `GenFVConfig`, kept here so the port never imports the
-JAX package. `ModelConfig` carries every field of the JAX package's, and the methods
+JAX package. `InputShape`, `INPUT_SHAPES` and `HardwareSpec` are the JAX
+package's, with one hardware instance, `H100`, in place of its TPU
+constants.
+`ModelConfig` carries every field of the JAX package's, and the methods
 the port reads: `reduced()`, `layer_kinds`, `padded_vocab_size`,
 `is_recurrent_decode`, `param_count()` and `active_param_count()` compute
 exactly what their JAX counterparts compute.
@@ -188,6 +191,46 @@ class ModelConfig:
             terms["encoder"] = self.encoder_layers * (attn * 2 + mlp)
         terms["norms"] = 2 * self.num_layers * d + d
         return terms
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned), field for field the JAX package's.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Target hardware, used only for roofline math (launch/dryrun.py) and the
+# kernel bounds of chip_smoke.py. The field names are the JAX package's, so
+# the dry-run record keeps its keys.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class HardwareSpec:
+    peak_flops: float        # dense bf16 FLOP/s of the tensor cores, per card
+    peak_flops_fp32: float   # float32 FLOP/s outside the tensor cores, per card
+    hbm_bw: float            # HBM bytes/s per card
+    hbm_bytes: float         # HBM capacity per card, bytes
+    ici_bw: float            # card-to-card link bytes/s per direction
+
+
+# NVIDIA H100 SXM (NVIDIA's data sheet, dense rates at the 700 W limit):
+# 989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s and 80 GB of HBM3, NVLink 4
+# at 450 GB/s per direction.
+H100 = HardwareSpec(peak_flops=989e12, peak_flops_fp32=67e12, hbm_bw=3.35e12,
+                    hbm_bytes=80e9, ici_bw=450e9)
 
 
 # ---------------------------------------------------------------------------

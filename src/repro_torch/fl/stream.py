@@ -118,7 +118,8 @@ class StreamEngine:
     """
 
     def __init__(self, runner: GenFVRunner,
-                 stream: StreamConfig | None = None):
+                 stream: StreamConfig | None = None,
+                 clock: VirtualClock | None = None):
         run = runner.run
         if not run.vectorized:
             raise ValueError(
@@ -132,7 +133,7 @@ class StreamEngine:
         # synchronous semantics: full quorum, no cadence)
         self.scfg = stream if stream is not None else (
             run.stream if run.stream is not None else StreamConfig())
-        self.clock = VirtualClock()
+        self.clock = clock if clock is not None else VirtualClock()
         self.obs = runner.obs
         self.inflight: List[InFlight] = []   # kept sorted by (due, seq)
         self._seq = 0

@@ -99,29 +99,34 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, impl: str = "torc
     return step
 
 
-def make_prefill_step(cfg: ModelConfig, *, long_window: Optional[int] = None):
+def make_prefill_step(cfg: ModelConfig, *, impl: str = "kernel",
+                      long_window: Optional[int] = None):
     """prefill(params, cache, batch) -> (last_logits [B,V], cache).
 
+    impl: "kernel" (the kernels) or "torch" (the plain torch route, which
+    the dry-run traces on the meta device; transformer's docstring).
     long_window: the gemma2 long-context variant, where global layers
     attend over the sliding window."""
 
     @torch.inference_mode()
     def prefill(params, cache, batch):
-        hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache,
+        hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache, impl=impl,
                                        long_window=long_window, logits_mode="hidden")
         return tfm.unembed(params, cfg, hidden[:, -1:])[:, 0], cache
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, *, long_window: Optional[int] = None):
+def make_decode_step(cfg: ModelConfig, *, impl: str = "kernel",
+                     long_window: Optional[int] = None):
     """decode(params, cache, tokens [B,1], positions [B,1] int32)
-    -> (logits [B,V], cache). One new token against the existing cache."""
+    -> (logits [B,V], cache). One new token against the existing cache;
+    impl as in `make_prefill_step`."""
 
     @torch.inference_mode()
     def decode(params, cache, tokens, positions):
         batch = {"tokens": tokens, "positions": positions}
-        hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache,
+        hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache, impl=impl,
                                        long_window=long_window, logits_mode="hidden")
         return tfm.unembed(params, cfg, hidden)[:, 0], cache
 

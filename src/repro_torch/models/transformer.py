@@ -47,6 +47,10 @@ def set_moe_mode(mode: str):
     _MOE_MODE["mode"] = mode
 
 
+def get_moe_mode() -> str:
+    return _MOE_MODE["mode"]
+
+
 def _init_layer(gen, cfg: ModelConfig, kind: str, dtype, device, cross: bool):
     p: Dict[str, Any] = {"ln1": init_norm(cfg, dtype, device)}
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):

@@ -22,13 +22,17 @@ from repro.core.emd import lambda_bound as j_lambda_bound
 from repro.exp import ExperimentSpec as JExperimentSpec
 from repro.exp import optimal_kappa2 as j_optimal_kappa2
 from repro.exp import theorem1_comparison as j_theorem1_comparison
+from repro.exp.sweep import Sweep as JSweep
 from repro.exp.sweep import SweepResult as JSweepResult
+from repro.fl.generator import OracleGenerator as JOracleGenerator
+from repro.configs.base import GenFVConfig as JGenFVConfig
 from repro.fl.rounds import RunConfig as JRunConfig
 from repro_torch.configs.base import GenFVConfig
 from repro_torch.core import convergence
 from repro_torch.core.emd import lambda_bound
 from repro_torch.exp import (ExperimentSpec, Sweep, SweepResult, grid,
                              optimal_kappa2, theorem1_comparison)
+from repro_torch.fl.generator import OracleGenerator
 from repro_torch.fl.rounds import GenFVRunner, RunConfig, run_payload
 
 REPO_ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -170,6 +174,46 @@ def test_sweep_matches_single_runs_bitwise(planner):
         for key in PARITY_KEYS:
             np.testing.assert_array_equal(result.metrics[key][cell.index], single.curve(key),
                                           err_msg=f"{cell.strategy}/{cell.scenario}/{key}")
+
+
+def test_sweep_generator_factory():
+    """The JAX Sweep's `generator_factory=` hands each cell's runner the
+    generator it makes. The port's Sweep takes no factory (no caller sets
+    one); its counterpart is the runner's own `generator=`: each cell run
+    alone through `GenFVRunner(cell.run, generator=...)` serves its AIGC
+    images from the generator given, and an oracle given so reproduces the
+    port's sweep bitwise."""
+    spec = ExperimentSpec(name="factory", strategies=("genfv", "fedavg"),
+                          scenarios=("rush_hour",), base=RunConfig(**FAST))
+
+    class Counting(OracleGenerator):
+        calls = 0
+
+        def generate(self, *args, **kw):
+            self.calls += 1
+            return super().generate(*args, **kw)
+
+    result = _sweep(spec).run()
+    made = []
+    for cell in spec.expand():
+        made.append(Counting(cell.run.dataset))
+        runner = GenFVRunner(cell.run, fl_cfg=FAST_CFG, generator=made[-1], device="cpu")
+        assert runner.server.generator is made[-1]
+        single = runner.train()
+        for key in PARITY_KEYS:
+            np.testing.assert_array_equal(result.metrics[key][cell.index], single.curve(key),
+                                          err_msg=f"{cell.strategy}/{key}")
+    assert made[0].calls > 0           # genfv generates; fedavg does not
+
+    jspec = JExperimentSpec(name="factory", strategies=("genfv", "fedavg"),
+                            scenarios=("rush_hour",), base=JRunConfig(**FAST))
+    jmade = []
+    jsweep = JSweep(jspec, fl_cfg=JGenFVConfig(batch_size=8, local_steps=2, num_vehicles=6),
+                    generator_factory=lambda c: jmade.append(JOracleGenerator(c.run.dataset))
+                    or jmade[-1])
+    for cell in jspec.expand():
+        assert jsweep._make_runner(cell).server.generator is jmade[-1]
+    assert len(jmade) == len(made)
 
 
 def test_sweep_rerun_and_stop_after_resume_bitwise(tmp_path):

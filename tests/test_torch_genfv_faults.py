@@ -342,6 +342,41 @@ def test_sequential_aggregate_equals_the_reference(n, with_aug):
     _same_tree(got, ref)
 
 
+
+@pytest.mark.parametrize("n,with_aug,given", [(3, True, "rhos"), (3, True, "kappa_emds"),
+                                              (4, True, "both"), (2, False, "both")])
+def test_sequential_aggregate_overrides_equal_the_reference(n, with_aug, given):
+    """The JAX server's `aggregate(rhos=, kappa_emds=)`: given weights
+    override `data_weights(sizes)`, given EMDs override the mean EMD of
+    `emds`. The port's server takes neither (no caller sets them); its
+    counterpart is eq. 4 itself, `core.emd.aggregate` with those weights
+    and the given EMDs' mean, which must give the JAX result bit for bit
+    and differ from the call without the overrides."""
+    rng = np.random.default_rng(40 + n)
+    p, aug = _trees(rng, 2)
+    models = _trees(rng, n)
+    sizes = list(rng.integers(10, 500, size=n))
+    emds = list(rng.random(n) * 1.8)
+    rhos, kappa_emds = t_emd.data_weights(sizes), emds
+    kw = {}
+    if given in ("rhos", "both"):
+        rhos = kw["rhos"] = np.asarray(rng.dirichlet(np.ones(n)), np.float64)
+    if given in ("kappa_emds", "both"):
+        kappa_emds = kw["kappa_emds"] = list(rng.random(n + 2) * 1.8)
+    js = JServer(None, jax.tree.map(jnp.asarray, p), JOracle("cifar10"), None)
+    ref, rk = js.aggregate([jax.tree.map(jnp.asarray, m) for m in models], sizes, emds,
+                           jax.tree.map(jnp.asarray, aug) if with_aug else None, **kw)
+    # the FL-only case is plain weighted FedAvg (kappa2 = 0), as in the server
+    emd_bar = t_emd.mean_emd(kappa_emds) if with_aug else 0.0
+    got = t_emd.aggregate([_t(m) for m in models], rhos,
+                          _t(aug) if with_aug else _t(models[0]), emd_bar)
+    assert t_emd.kappas(emd_bar) == rk
+    _same_tree(got, ref)
+    plain, _ = GenFVServer(None, _t(p), OracleGenerator("cifar10"), None).aggregate(
+        [_t(m) for m in models], sizes, emds, _t(aug) if with_aug else None)
+    assert any(not torch.equal(got[k], plain[k]) for k in SHAPES)
+
+
 def test_tree_finite():
     rng = np.random.default_rng(1)
     tree = _t(_trees(rng, 1)[0])

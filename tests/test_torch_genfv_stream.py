@@ -37,6 +37,7 @@ from repro.configs.base import StreamConfig as JStreamConfig  # noqa: E402
 from repro.fl.rounds import GenFVRunner as JRunner  # noqa: E402
 from repro.fl.rounds import RunConfig as JRunConfig  # noqa: E402
 from repro.fl.stream import StreamEngine as JStreamEngine  # noqa: E402
+from repro.obs import VirtualClock as JVirtualClock  # noqa: E402
 from repro_torch.configs.base import GenFVConfig, StreamConfig  # noqa: E402
 from repro_torch.fl.faults import fault_names  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
@@ -125,6 +126,28 @@ def test_stream_loss_and_params_within_float32(pair):
         assert abs(lt.accuracy - lj.accuracy) <= ACC_TOL, \
             f"{what}: accuracy {lt.accuracy} vs {lj.accuracy} (tol {ACC_TOL})"
 
+
+def test_engine_uses_the_clock_it_is_given():
+    """StreamEngine(clock=): both engines on one churn pair, each given a
+    virtual clock already at 100 s; the port's ledgers equal the JAX
+    engine's, start at the clock's time, and the engine's time is that
+    clock's."""
+    scenario, fault = PAIRS[0]
+    kw = dict(strategy="genfv", scenario=scenario, seed=0, faults=fault,
+              planner="numpy", **dict(QUICK, rounds=2))
+    ref = JRunner(JRunConfig(**kw), fl_cfg=JGenFVConfig(**CFG))
+    port = GenFVRunner(RunConfig(**kw), fl_cfg=GenFVConfig(**CFG), device="cpu")
+    jclock, clock = JVirtualClock(100.0), VirtualClock(100.0)
+    ej = JStreamEngine(ref, JStreamConfig(**STREAM), clock=jclock)
+    et = StreamEngine(port, StreamConfig(**STREAM), clock=clock)
+    assert et.clock is clock
+    for t in range(2):
+        port.server.params = harness._port_params(ref.server.params)
+        ej.run_round(t)
+        et.run_round(t)
+    assert [vars(s) for s in et.slogs] == [vars(s) for s in ej.slogs]
+    assert et.slogs[0].t_start == 100.0
+    assert et.now == clock() == jclock() > et.slogs[-1].t_start
 
 def test_churn_pairs_exercise_the_stream_machinery():
     """The pairs above reach retries, an exhausted budget, a degraded rung,

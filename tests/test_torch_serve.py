@@ -196,6 +196,37 @@ def test_attention_cache_writes_match_jax(model, S):
             np.testing.assert_array_equal(ct[key].numpy(), np.asarray(cj[key]))
 
 
+def test_prefill_past_the_window_attends_the_ring_only(model):
+    """A prompt longer than the local window (S = 160 against 64 slots):
+    both packages write the ring first and attend over it, so a row at
+    position p sees only the cached positions S-64..p. Rows p < S-64 see
+    no slot and return the mean of the cached V; every other row but the
+    last misses the part of its window before S-64; the last row alone
+    equals windowed attention over the whole prompt. The port keeps this
+    (ROADMAP Queue 3, reference defect 14) and equals the JAX layer."""
+    cfg_j, cfg, params_j, params, _ = model
+    pj, pt = _layer(params_j, 1)["attn"], params["layers"][1]["attn"]
+    B, S, cap = 2, 160, cfg.sliding_window
+    rng = np.random.default_rng(160)
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None].repeat(B, 0)
+    cj = jax_init_kv_cache(cfg_j, "local", B, 192)
+    ct = init_kv_cache(cfg, "local", B, 192, torch.float32, "cpu")
+    assert ct["k"].shape[1] == cap == 64
+    yj, _ = jax_attention(pj, jnp.asarray(x), cfg_j, "local", jnp.asarray(pos),
+                          cache=cj, impl="pallas")
+    yt, ct = attention(pt, torch.from_numpy(x), cfg, "local", torch.from_numpy(pos), cache=ct)
+    assert np.abs(yt.numpy() - np.asarray(yj)).max() < LAYER_TOL
+    free, _ = attention(pt, torch.from_numpy(x), cfg, "local", torch.from_numpy(pos))
+    g = cfg.num_heads // cfg.num_kv_heads
+    mean_v = ct["v"].mean(1).repeat_interleave(g, dim=1).reshape(B, -1) @ pt["wo"]
+    empty = S - cap
+    assert (yt[:, :empty] - mean_v[:, None]).abs().max() < LAYER_TOL
+    assert (yt[:, -1] - free[:, -1]).abs().max() < LAYER_TOL
+    short = (yt[:, empty:-1] - free[:, empty:-1]).abs().amax(dim=(0, 2))
+    assert bool((short > 1e-3).all())
+
+
 @pytest.mark.parametrize("S", [20, 64, 70])
 def test_prefill_and_decode_logits_match_jax(model, S):
     """Prefill logits, then every decode step's logits. At S = 70 the prompt
