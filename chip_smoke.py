@@ -2409,17 +2409,53 @@ LAUNCH_SCAN = (1, 32768, 4096)
 PLAIN_SCORE_BYTES = 8 * 2**30   # the most fp32 scores one plain call may hold
 PLAIN_BLOCK = 2048              # query rows a call of the plain version takes past it
 L1_WORKERS = 7
+# the pairs whose 16x16 collective trace is past COLLECTIVE_OP_LIMIT (the
+# sLSTM loop over the sequence), which L1 names; every other pair in scope
+# must give a collective term
+L1_COLLECTIVE_BEYOND = (("xlstm-1.3b", "prefill_32k"), ("xlstm-1.3b", "train_4k"))
+# the five pairs of tests/test_torch_collectives.py (a), in float32 at two
+# pattern groups plus the remainder on 16x16: the JAX dry-run's collective
+# bytes a rank (jax 0.9.0, CPU) and the ratio JAX / port by torch version,
+# as measured: on 2.13 by that test (which holds these constants to the JAX
+# package), on 2.11 (the card's) by L1. DTensor plans some steps
+# differently in the two versions (qwen1.5-0.5b prefill_32k moves 22% fewer
+# bytes on 2.11). L1 holds the card's torch to its ratios within
+# L1_RATIO_RTOL; a torch with no ratios here fails until they are measured.
+L1_AGAINST_JAX = {
+    ("qwen1.5-0.5b", "train_4k"): (108_877_667_292, {"2.13": 2.094, "2.11": 2.045}),
+    ("qwen1.5-0.5b", "prefill_32k"): (40_736_582_460, {"2.13": 12.931, "2.11": 16.631}),
+    ("qwen1.5-0.5b", "decode_32k"): (1_638_392_184, {"2.13": 4.010, "2.11": 4.110}),
+    ("recurrentgemma-9b", "decode_32k"): (778_903_924, {"2.13": 1.582, "2.11": 1.576}),
+    ("olmoe-1b-7b", "decode_32k"): (3_661_678_108, {"2.13": 4.591, "2.11": 4.592})}
+L1_RATIO_RTOL = 0.01
+L4_BATCH, L4_PROMPT = 4, 64
 
 
 def _l1_worker_init():
     torch.set_num_threads(1)
 
 
+def _l1_against_jax(arch, shape):
+    """The port's collective bytes by kind of a pair of L1_AGAINST_JAX."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.dryrun import count_collectives, cut_to_groups
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.optim import adamw, constant_schedule
+    return count_collectives(cut_to_groups(get_config(arch), 2), INPUT_SHAPES[shape],
+                             make_production_mesh(), adamw(constant_schedule(1e-4)),
+                             dtype=torch.float32)[0]
+
+
 def launch_dryrun_l1(device):
     """L1: the dry-run of the ten architectures x four shapes on the meta
     device, each pair traced once for the one-card mesh and the 16x16
-    description, in L1_WORKERS processes (the traces are host work, the
-    longest first). Returns the records by (arch, shape)."""
+    description, and its collectives on a fake 16x16 DeviceMesh, in
+    L1_WORKERS processes (the traces are host work, the longest first).
+    Every pair in scope but L1_COLLECTIVE_BEYOND gives a 16x16 collective
+    term, and `dominant` is taken over the three terms. The pairs of
+    L1_AGAINST_JAX are counted as the CPU test counts them, and the ratio
+    of the JAX count to the card's is the pinned one. Returns the records
+    by (arch, shape)."""
     from concurrent.futures import ProcessPoolExecutor
     import multiprocessing
     from repro_torch.configs import INPUT_SHAPES, list_archs
@@ -2433,7 +2469,9 @@ def launch_dryrun_l1(device):
     with ProcessPoolExecutor(L1_WORKERS, mp_context=multiprocessing.get_context("spawn"),
                              initializer=_l1_worker_init) as pool:
         futures = {p: pool.submit(dryrun_pair, *p, meshes, verbose=False) for p in pairs}
+        against = {p: pool.submit(_l1_against_jax, *p) for p in L1_AGAINST_JAX}
         recs = {p: f.result() for p, f in futures.items()}
+        against = {p: f.result() for p, f in against.items()}
     l1_s = time.perf_counter() - t0
     for (arch, shape), (one, many) in sorted(recs.items()):
         if one["skipped"]:
@@ -2444,19 +2482,57 @@ def launch_dryrun_l1(device):
         trace = (f"traced in {one['trace_s']:.1f} s ({one['trace_ops']:,} ops), FLOP counter "
                  f"{one['flop_counter_global']:.4e}" if one["trace_s"] is not None
                  else f"trace {one['trace']}")
+        if many["collective_term_s"] is not None:
+            kinds = ", ".join(f"{k} {v / 2**30:.4g}" for k, v in many["collective_by_kind"].items())
+            coll = (f"collectives {many['collective_bytes_global'] / 2**30:.4g} GiB a rank "
+                    f"({kinds}), term {many['collective_term_s']:.6g} s, traced in "
+                    f"{many['collective_trace_s']:.1f} s")
+        else:
+            coll = f"collectives {many['collective_note']}"
         print(f"launch L1 {arch} x {shape}: {one['kind']}, arguments {args / 2**30:.2f} GiB "
               f"{'fit' if one['fits_card'] else 'do NOT fit'} one card "
               f"({total / 2**30:.2f} GiB); 1x1: compute {one['compute_term_s']:.6g} s, memory "
               f"{one['memory_term_s']:.6g} s, dominant {one['dominant']}; 16x16: "
               f"{many['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB a card, compute "
-              f"{many['compute_term_s']:.6g} s, memory {many['memory_term_s']:.6g} s, dominant "
-              f"{many['dominant']}; analytic FLOPs {one['executed_flops_global']:.4e}; {trace}")
+              f"{many['compute_term_s']:.6g} s, memory {many['memory_term_s']:.6g} s, {coll}, "
+              f"dominant {many['dominant']}; analytic FLOPs {one['executed_flops_global']:.4e}; "
+              f"{trace}")
+        beyond = (arch, shape) in L1_COLLECTIVE_BEYOND
+        require((many["collective_term_s"] is None) == beyond
+                and (not beyond or "COLLECTIVE_OP_LIMIT" in many["collective_note"]),
+                f"launch L1 {arch} x {shape}: 16x16 collective term {many['collective_term_s']} "
+                f"({many['collective_note']})")
+        terms = {k: many[f"{k}_term_s"] for k in ("compute", "memory", "collective")
+                 if many[f"{k}_term_s"] is not None}
+        require(many["dominant"] == max(terms, key=terms.get),
+                f"launch L1 {arch} x {shape}: dominant is not the largest term")
     for pair in LAUNCH_TOO_BIG:
         require(not recs[pair][0]["fits_card"], f"launch L1 {pair}: the arguments fit one card")
+    off = []
+    version = ".".join(torch.__version__.split(".")[:2])
+    for (arch, shape), (jax_bytes, by_version) in L1_AGAINST_JAX.items():
+        require(version in by_version, f"launch L1 against JAX: no ratios measured for torch "
+                                       f"{version} (L1_AGAINST_JAX)")
+        pinned = by_version[version]
+        port = against[(arch, shape)]
+        ratio = jax_bytes / sum(port.values())
+        kinds = ", ".join(f"{k} {v:,}" for k, v in sorted(port.items()))
+        print(f"launch L1 against JAX {arch} x {shape} (float32, two pattern groups, 16x16): "
+              f"port {sum(port.values()):,} bytes a rank on torch {torch.__version__} ({kinds}), "
+              f"JAX {jax_bytes:,}, ratio {ratio:.4f}, pinned for torch {version} {pinned} "
+              f"(for torch 2.13, the CPU test's: {by_version['2.13']})")
+        if abs(ratio / pinned - 1) > L1_RATIO_RTOL:
+            off.append(f"{arch} x {shape} {ratio:.4f} (pinned {pinned})")
+    require(not off, f"launch L1 against JAX: ratios off: {'; '.join(off)}")
     n_skip = sum(r[0]["skipped"] for r in recs.values())
     n_untraced = sum(not r[0]["skipped"] and r[0]["trace_s"] is None for r in recs.values())
+    coll_s = sum(r[1]["collective_trace_s"] or 0.0 for r in recs.values() if not r[1]["skipped"])
+    for pair in L1_COLLECTIVE_BEYOND:
+        print(f"launch L1 {pair[0]} x {pair[1]}: no 16x16 collective term, "
+              f"{recs[pair][1]['collective_note']}")
     print(f"launch L1: {len(recs)} pairs ({n_skip} out of scope, {n_untraced} not traced) on the "
-          f"1x1 and 16x16 meshes in {l1_s:.1f} s on {L1_WORKERS} processes")
+          f"1x1 and 16x16 meshes in {l1_s:.1f} s on {L1_WORKERS} processes; the 16x16 "
+          f"collective traces took {coll_s:.1f} s of it in all")
     return recs, l1_s
 
 
@@ -2603,9 +2679,72 @@ def launch_allreduce(device):
           f"bit for bit")
 
 
+def launch_sharded(device):
+    """L4: the sharded prefill and decode steps of a reduced qwen1.5-0.5b
+    on a one-rank NCCL DeviceMesh on the card: DTensor parameters, cache and
+    inputs placed by the sharding rules, the activation constraints active,
+    impl="torch". The logits equal the plain steps' bit for bit."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import autoshard
+    from repro_torch.distributed.sharding import (batch_shardings, cache_shardings,
+                                                  distribute, params_shardings)
+    from repro_torch.launch.mesh import MeshSpec, device_mesh
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    gen = torch.Generator(device=device).manual_seed(12)
+    params = api.init_params(gen, cfg, device=device)
+    B, S = L4_BATCH, L4_PROMPT
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device,
+                           dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=device,
+                        dtype=torch.int32)
+    pos = torch.full((B, 1), S, dtype=torch.int32, device=device)
+    prefill = api.make_prefill_step(cfg, impl="torch")
+    decode = api.make_decode_step(cfg, impl="torch")
+
+    def run(params, cache, tokens, nxt, pos):
+        lp, cache = prefill(params, cache, {"tokens": tokens})
+        ld, _ = decode(params, cache, nxt, pos)
+        return lp, ld
+
+    plain = run(params, api.init_cache(cfg, B, S + 1, device=device), tokens, nxt, pos)
+    spec = MeshSpec(("data", "model"), (1, 1))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cuda = device.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, **({"device_id": device} if cuda else {}))
+    try:
+        with device_mesh(spec, device_type=device.type) as mesh:
+            cache = api.init_cache(cfg, B, S + 1, device=device)
+            args = (distribute(params, params_shardings(params, spec, cfg), mesh),
+                    distribute(cache, cache_shardings(cache, spec), mesh),
+                    *(distribute(t, batch_shardings(t, spec), mesh) for t in (tokens, nxt, pos)))
+            with autoshard.activation_sharding(mesh), implicit_replication():
+                require(autoshard.sharded_mesh() is mesh, "launch L4: the constraints are off")
+                sharded = run(*args)
+            require(all(isinstance(t, DTensor) for t in sharded),
+                    "launch L4: the sharded steps did not return DTensors")
+            sharded = [t.full_tensor() for t in sharded]
+            sync(device)
+    finally:
+        dist.destroy_process_group()
+    same = [torch.equal(a, b) for a, b in zip(plain, sharded)]
+    require(all(same), f"launch L4: sharded logits differ from the plain steps' (prefill, "
+                       f"decode equal: {same})")
+    print(f"launch L4: qwen1.5-0.5b reduced ({cfg.num_layers} layers, d {cfg.d_model}), prefill "
+          f"{B} x {S} and one decode step as DTensors on a one-rank "
+          f"{'NCCL' if cuda else 'gloo'} DeviceMesh, constraints active, impl torch: logits "
+          f"equal to the plain steps' bit for bit")
+
+
 def launch(device):
-    """Phase launch: L1 the dry-run of all 40 pairs, L2 seven pairs run at
-    full width on the card, the new kernel shapes held, L3 the all-reduce."""
+    """Phase launch: L1 the dry-run of all 40 pairs with the 16x16
+    collective term, L2 seven pairs run at full width on the card, the new
+    kernel shapes held, L3 the all-reduce, L4 the sharded steps."""
     t_start = time.perf_counter()
     print(f"launch on {card()}")
     l1, l1_s = launch_dryrun_l1(device)
@@ -2613,6 +2752,7 @@ def launch(device):
     torch.cuda.empty_cache()
     errors = launch_kernels(device)
     launch_allreduce(device)
+    launch_sharded(device)
     phase_s = time.perf_counter() - t_start
     print(f"launch: phase {phase_s:.1f} s (L1 {l1_s:.1f} s)")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
@@ -2700,6 +2840,42 @@ def sdpa_call(q, k, v, q_pos, kv_pos, window):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
 
+def flex_softcap_call(q, k, v, q_pos, kv_pos, window, cap):
+    """One `torch.nn.attention.flex_attention` call (compiled) on the same
+    inputs: the mask from the positions as a block mask, the tanh softcap
+    as its score_mod, GQA. Returns (the call, its max abs error against
+    the plain version on the query rows with a valid slot, and the number
+    of rows without one, where flex_attention returns zeros and the kernel
+    the mean of V)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    B, Sq, _, _ = q.shape
+    Skv = k.shape[1]
+
+    def mask_mod(b, h, qi, ki):
+        kp, qp = kv_pos[b, ki], q_pos[b, qi]
+        valid = (kp >= 0) & (qp >= kp)
+        return valid & (qp - kp < window) if window is not None else valid
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    block_mask = create_block_mask(mask_mod, B, None, Sq, Skv, device=q.device)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return flex(qh, kh, vh, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+    want = flash_attention_ref(q, k, v, q_pos, kv_pos, window=window, softcap=cap)
+    rel = q_pos[:, :, None] - kv_pos[:, None, :]
+    valid = (kv_pos[:, None, :] >= 0) & (rel >= 0)
+    if window is not None:
+        valid &= rel < window
+    rows = valid.any(-1)                                            # [B, Sq]
+    err = float((call().transpose(1, 2).float() - want.float()).abs()[rows].max())
+    return call, err, int((~rows).sum())
+
+
 def plain_call(args, kw):
     """The plain version on the same inputs: one call, or, where one call's
     fp32 scores would pass PLAIN_SCORE_BYTES, blocks of PLAIN_BLOCK query
@@ -2747,7 +2923,8 @@ def _scan_entry(name, shape, gen, device, errors, launches):
 
 def time_kernels(device, errors, launches, family_launches, launch_launches):
     """The kernels at the serving shapes of phase 4 and of F2. SDPA has no
-    softcap, so the gemma2-9b shapes (softcap 50) have no library time. The
+    softcap: the gemma2-9b shapes (softcap 50) take flex_attention's time
+    (compiled, the softcap as its score_mod) as their library time. The
     scan is timed right after the two recurrentgemma-9b rows and once more
     after the gemma2-9b rows, so a move of its time can be told from the
     order of the timings."""
@@ -2764,9 +2941,13 @@ def time_kernels(device, errors, launches, family_launches, launch_launches):
                                     launches["rglru_scan.prefill"])
     for name, _ in FAMILY_SHAPES:
         args, kw = family_serving_inputs(name, gen, device)
+        flex, flex_err, empty = flex_softcap_call(*args, kw.get("window"), kw["softcap"])
+        print(f"flash_attention.{name}: flex_attention with the softcap as score_mod, max abs "
+              f"error against the plain version {flex_err:.4g} on the rows with a slot "
+              f"({empty} rows without one, zeros there)")
         entries.append(_flash_entry(name, args, kw, device, errors,
-                                    family_launches[f"flash_attention.{name}"], None))
-        del args
+                                    family_launches[f"flash_attention.{name}"], flex))
+        del args, flex
         torch.cuda.empty_cache()
     entries.append(scan)
     print(f"rglru_scan.prefill timed again after the gemma2-9b rows: "

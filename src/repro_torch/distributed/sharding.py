@@ -30,6 +30,12 @@ the JAX rule shards the G axis itself (the [G, d] norm scales of
 grok-1-314b, llava-next-mistral-7b and olmoe-1b-7b on a 16x16 mesh, where
 G divides by 16), a per-layer leaf cannot say so: its spec keeps the other
 entries, and `per_device_bytes` counts it 16 times the JAX leaf's share.
+
+`placements` and `distribute` take a spec tree onto a
+`torch.distributed.device_mesh.DeviceMesh` (`launch.mesh.device_mesh`):
+an axis name at dim i is `Shard(i)` on that mesh dim, a tuple of names is
+`Shard(i)` on each of them (major to minor, as a PartitionSpec reads),
+None is `Replicate()`.
 """
 from __future__ import annotations
 
@@ -231,6 +237,42 @@ def per_device_bytes(tree: Any, specs: Any, mesh) -> int:
 
     _map_with_path(add, tree)
     return total
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of `spec` on the DeviceMesh `mesh`."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for name in ((entry,) if isinstance(entry, str) else entry):
+            out[names.index(name)] = Shard(i)
+    return tuple(out)
+
+
+def distribute(tree: Any, specs: Any, mesh) -> Any:
+    """The tensors of `tree` as DTensors on the DeviceMesh `mesh`, laid out
+    by `specs`. A meta tensor becomes a DTensor of meta shards (nothing is
+    allocated); a real tensor, which every rank must hold whole, is cut
+    into its local shard with no communication. Other leaves stay."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def leaf(path, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        pl = placements(_lookup(specs, path), mesh)
+        if t.device.type != "meta":
+            return distribute_tensor(t, mesh, pl, src_data_rank=None)
+        local = list(t.shape)
+        for mdim, p in enumerate(pl):
+            if p.is_shard():
+                local[p.dim] //= mesh.size(mdim)
+        return DTensor.from_local(torch.empty(local, dtype=t.dtype, device="meta"), mesh,
+                                  pl, run_check=False, shape=t.shape, stride=t.stride())
+
+    return _map_with_path(leaf, tree)
 
 
 def _lookup(tree, path):

@@ -36,7 +36,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -90,6 +90,9 @@ class Sweep:
     fl_cfg: shared GenFVConfig for every cell (scenario overlays still
         apply per cell). None keeps the runner default
         (`GenFVConfig(dirichlet_alpha=cell.alpha)`).
+    generator_factory: optional `cell -> generator` hook for the cells'
+        AIGC service; None lets each runner build its own from
+        `cell.run.generator`.
     obs: a `repro_torch.obs.Obs` tracer shared by the sweep and every
         cell's runner (each runner gets a cell-tagged view). None keeps the
         null path; either way the executed rounds are bitwise-identical.
@@ -99,10 +102,12 @@ class Sweep:
 
     def __init__(self, spec: ExperimentSpec,
                  fl_cfg: GenFVConfig | None = None,
+                 generator_factory: Optional[Callable[[Cell], Any]] = None,
                  verbose: bool = False, obs=None, device="cuda"):
         self.device = resolve_device(device)
         self.spec = spec
         self.fl_cfg = fl_cfg
+        self.generator_factory = generator_factory
         self.verbose = verbose
         self.obs = obs if obs is not None else NULL_OBS
         self._datasets = _DatasetCache()
@@ -122,10 +127,12 @@ class Sweep:
             engine = FleetEngine(cnn, fl.local_steps, fl.batch_size,
                                  lr=CLIENT_LR)
             self._engines[key] = engine
-        # each runner builds its own AIGC service from `run.generator`: the
-        # oracle, or for "ddpm" cells `make_ddpm_generator(..., device=)` at
-        # the cell's `sampler_steps`, priced with its measured t_image
-        return GenFVRunner(run, fl_cfg=fl, engine=engine,
+        # without a factory each runner builds its own AIGC service from
+        # `run.generator`: the oracle, or for "ddpm" cells
+        # `make_ddpm_generator(..., device=)` at the cell's `sampler_steps`,
+        # priced with its measured t_image
+        gen = self.generator_factory(cell) if self.generator_factory is not None else None
+        return GenFVRunner(run, fl_cfg=fl, generator=gen, engine=engine,
                            dataset_fn=self._datasets,
                            obs=self.obs.tagged(cell=cell.index),
                            device=self.device)

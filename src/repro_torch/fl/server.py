@@ -81,13 +81,17 @@ class GenFVServer:
 
     # ---- aggregation (eq. 4), sequential path ------------------------------
     def aggregate(self, vehicle_models: List, sizes: Sequence[int],
-                  emds: Sequence[float], aug_model=None):
+                  emds: Sequence[float], aug_model=None, *,
+                  rhos=None, kappa_emds=None):
+        """rhos: the weights of the vehicle models (default
+        `data_weights(sizes)`); kappa_emds: the EMDs that set kappa
+        (default `emds`)."""
         if not vehicle_models:
             if aug_model is not None:
                 self.params = aug_model
             return self.params, (1.0, 0.0)
-        rhos = data_weights(sizes)
-        emd_bar = mean_emd(emds)
+        rhos = data_weights(sizes) if rhos is None else np.asarray(rhos, np.float64)
+        emd_bar = mean_emd(emds if kappa_emds is None else kappa_emds)
         if aug_model is None:
             # FL-only: plain weighted FedAvg (kappa2 = 0)
             aug_model = vehicle_models[0]

@@ -38,11 +38,35 @@ this one does two things instead:
     edges), the peak memory against the argument bytes (the difference
     stands for the compiled step's temp bytes), and the kernels' launches.
 
+(c) The collective trace, on each mesh of more than one card. The step
+    runs once more on meta DTensors over a DeviceMesh of the mesh's axes
+    (`launch.mesh.device_mesh`, a fake process group: this process is
+    rank 0 and nothing moves), its arguments placed by `build_shardings`,
+    under `activation_sharding` (the models' `aconstrain` pins the JAX
+    package's layouts) on the plain torch route, and its outputs
+    redistributed to the JAX dry-run's `out_shardings` (logits by the batch
+    rule, train outputs as their inputs, the metrics replicated).
+    `CollectiveCounter` adds up the bytes of each collective's output on
+    the rank, by the JAX HLO kind. Loop scaling follows the JAX count,
+    which scales the layer scan's body by `loop_trip_count(cfg)` and counts
+    the remainder layers and everything outside the scan once: the step is
+    traced cut to one pattern group plus the remainder (A) and to two
+    groups plus the remainder (B); B - A is one group's collectives, and
+    the record gives A + (trip - 1) (B - A). A config of fewer than two
+    groups is traced whole. A pair whose two traces would dispatch more
+    than COLLECTIVE_OP_LIMIT ops in their loops is not traced (None, and
+    a note naming the limit). On 2x16x16 the trace runs on the 32x16 mesh
+    with the pod axis folded into data (`launch.mesh.fold_pods`), which
+    lays every tensor out on the same ranks: DTensor plans a step on a
+    three-dim mesh 25 times more slowly.
+
 The roofline terms are the analytic model (`launch.analysis`) over
 n_cards x `H100`. On a 1x1 mesh the collective term is 0, which is exact;
-on a mesh description of more than one card it is not measured (None,
-with `collective_note`), and `dominant` is chosen from the compute and
-memory terms alone. Records go to `dryrun_torch_<arch>_<shape>_<mesh>.json`
+on a larger mesh it is (c)'s bytes over n_cards x `H100.ici_bw`, the JAX
+dry-run's formula (which divides one device's bytes by the number of cards
+a second time: ROADMAP.md Queue 3 keeps that as a reference defect, and the
+port keeps it so that the records compare). `dominant` is the largest of
+the three terms. Records go to `dryrun_torch_<arch>_<shape>_<mesh>.json`
 under `--out` (default `artifacts/torch_dryrun/`).
 
 Record keys that differ from the JAX dry-run's: `trace_s` stands for
@@ -64,18 +88,21 @@ import statistics
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import INPUT_SHAPES, get_config, list_archs
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_RGLRU,
                                       BLOCK_SLSTM, H100)
-from repro_torch.distributed.sharding import (batch_shardings, cache_shardings,
-                                              params_shardings, per_device_bytes)
+from repro_torch.distributed.autoshard import activation_sharding
+from repro_torch.distributed.sharding import (batch_shardings, cache_shardings, distribute,
+                                              params_shardings, per_device_bytes, placements)
 from repro_torch.kernels import ops
 from repro_torch.launch import specs as S
 from repro_torch.launch.analysis import (executed_bytes, executed_flops,
                                          loop_trip_count, model_flops)
-from repro_torch.launch.mesh import MeshSpec, make_host_mesh, make_production_mesh
-from repro_torch.launch.metatrace import MetaTrace
+from repro_torch.launch.mesh import (MeshSpec, device_mesh, fold_pods, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.metatrace import CollectiveCounter, MetaTrace
 from repro_torch.models import api
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import KV_CHUNK
@@ -95,6 +122,8 @@ from repro_torch.tree import tree_leaves
 LOOP_OPS = {"attention": 39, "attention_q": 11, "rglru": 4, "slstm": 36, "moe": 12}
 TRAIN_PASSES = 6
 TRACE_OP_LIMIT = 4_000_000
+# the collective trace's DTensor dispatch costs more an op than MetaTrace's
+COLLECTIVE_OP_LIMIT = 2_000_000
 Q_CHUNK = 512      # sdpa_chunked's q block
 EXECUTE_RUNS = 5
 
@@ -183,6 +212,101 @@ def meta_trace(cfg, shape, optimizer, dtype, long_window, moe_mode):
             "flop_counter_global": float(sum(mt.flops.values())),
             "flop_counter_by_op": {str(k): float(v) for k, v in mt.flops.items()},
             "trace_ops": mt.calls, "trace_cache_hits": mt.hits, "outputs": outputs}
+
+
+def cut_to_groups(cfg, groups: int):
+    """cfg cut to `groups` pattern groups plus its remainder layers (the
+    sharding rules treat each kept layer as the full config does)."""
+    plen = len(cfg.pattern)
+    return dataclasses.replace(cfg, num_layers=groups * plen + cfg.num_layers % plen)
+
+
+def _collective_cuts(cfg):
+    """The configs (c) traces: the whole config below two groups, else one
+    and two groups plus the remainder."""
+    if cfg.num_layers // len(cfg.pattern) < 2:
+        return [cfg]
+    return [cut_to_groups(cfg, 1), cut_to_groups(cfg, 2)]
+
+
+def _out_specs(out, mesh_spec, kind, specs):
+    """The JAX dry-run's out_shardings: logits by the batch rule, train
+    outputs as their inputs, the metrics replicated."""
+    if kind == "train":
+        return (specs[0], specs[1], {k: (None,) * v.ndim for k, v in out[2].items()})
+    return (batch_shardings(out[0], mesh_spec), specs[1])
+
+
+def count_collectives(cfg, shape, mesh_spec: MeshSpec, optimizer, *, dtype=torch.bfloat16,
+                      long_window=None):
+    """One collective trace ((c) of the module docstring) of `cfg` as given:
+    (bytes by kind, calls by kind, ops dispatched)."""
+    args, kind = S.input_specs(cfg, shape, optimizer, dtype=dtype)
+    specs = build_shardings(cfg, mesh_spec, args, kind)
+    step = build_step(cfg, shape, optimizer, long_window, impl="torch")
+    from torch.distributed.tensor.experimental import implicit_replication
+    with device_mesh(mesh_spec) as mesh:
+        dargs = tuple(distribute(a, s, mesh) for a, s in zip(args, specs))
+        with activation_sharding(mesh), implicit_replication(), MetaTrace() as mt, \
+                CollectiveCounter() as cc:
+            out = step(*dargs)
+            _redistribute(out, _out_specs(out, mesh_spec, kind, specs), mesh)
+    return dict(cc.bytes_by_kind), dict(cc.calls_by_kind), mt.calls
+
+
+def _redistribute(out, specs, mesh):
+    if isinstance(out, dict):
+        for k, v in out.items():
+            _redistribute(v, specs[k], mesh)
+    elif isinstance(out, (list, tuple)):
+        for v, s in zip(out, specs):
+            _redistribute(v, s, mesh)
+    elif isinstance(out, DTensor):
+        out.redistribute(mesh, placements(specs, mesh))
+
+
+def collective_trace(cfg, shape, mesh_spec: MeshSpec, optimizer, dtype, long_window,
+                     moe_mode="dense"):
+    """(c) of the module docstring: the record's collective fields."""
+    trip = loop_trip_count(cfg)
+    cuts = _collective_cuts(cfg)
+    ops = sum(trace_ops(c, shape, moe_mode)[0] for c in cuts)
+    if ops > COLLECTIVE_OP_LIMIT:
+        what = trace_ops(cfg, shape, moe_mode)[1].split(";")[0]
+        return {"collective_bytes_global": None, "collective_by_kind": None,
+                "collective_note": (f"not traced: the collective trace's loops ({what}) would "
+                                    f"dispatch about {ops:,} ops in its {len(cuts)} cuts, past "
+                                    f"COLLECTIVE_OP_LIMIT {COLLECTIVE_OP_LIMIT:,}"),
+                "collective_trace_s": None}
+    traced = fold_pods(mesh_spec)
+    t0 = time.perf_counter()
+    counts = [count_collectives(c, shape, traced, optimizer, dtype=dtype,
+                                long_window=long_window) for c in cuts]
+    t = time.perf_counter() - t0
+    by_kind, calls = dict(counts[0][0]), dict(counts[0][1])
+    if len(counts) == 2:
+        for kinds, cnt in ((by_kind, 0), (calls, 1)):
+            for k in set(counts[0][cnt]) | set(counts[1][cnt]):
+                a, b = counts[0][cnt].get(k, 0), counts[1][cnt].get(k, 0)
+                kinds[k] = a + (trip - 1) * (b - a)
+    how = ("the whole config traced" if len(counts) == 1 else
+           f"traced at 1 and 2 pattern groups plus the remainder; one group's "
+           f"collectives (the difference) scaled by the trip count {trip}")
+    return {"collective_bytes_global": float(sum(by_kind.values())),
+            "collective_by_kind": {k: float(v) for k, v in sorted(by_kind.items())},
+            "collective_calls_by_kind": dict(sorted(calls.items())),
+            "collective_note": (f"bytes of each collective's output on one rank, by the JAX HLO "
+                                f"kind, from a DTensor trace on a fake {traced.name} mesh "
+                                f"({how}); the term divides them by n_cards x ici_bw as the "
+                                f"JAX dry-run does (ROADMAP.md Queue 3)"),
+            "collective_trace_s": t, "collective_trace_ops": sum(c[2] for c in counts)}
+
+
+def collective_term(cbytes: float, n_cards: int) -> float:
+    """The JAX dry-run's collective term: one rank's collective bytes over
+    n_cards x the link rate (ROADMAP.md Queue 3: understated n_cards-fold;
+    kept so that the records compare)."""
+    return cbytes / (n_cards * H100.ici_bw)
 
 
 def roofline(cfg, shape, n_cards: int, *, moe_mode, long_window):
@@ -307,9 +431,10 @@ def dryrun_pair(arch: str, shape_name: str, meshes, *, dtype=torch.bfloat16,
                 tag: str = "baseline", execute: bool = False, device="cuda",
                 batch: int | None = None, trace: bool = True, verbose: bool = True):
     """One record per mesh in `meshes`, from one meta trace (and one
-    execution, where asked) of the pair. `batch` cuts the shape's global
-    batch (the record names the cut); `trace=False` leaves the meta trace
-    out (a caller that traced the pair already)."""
+    execution, where asked) of the pair, and one collective trace per mesh
+    of more than one card. `batch` cuts the shape's global batch (the
+    record names the cut); `trace=False` leaves the meta trace out (a
+    caller that traced the pair already)."""
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -342,15 +467,20 @@ def dryrun_pair(arch: str, shape_name: str, meshes, *, dtype=torch.bfloat16,
             cfg, shape, n, moe_mode=moe_mode, long_window=long_window)
         terms = {"compute": compute_term, "memory": memory_term}
         if n == 1:
-            cbytes, coll_term, coll_note = 0.0, 0.0, "one card: no collective"
-            terms["collective"] = 0.0
+            coll = {"collective_bytes_global": 0.0, "collective_by_kind": {},
+                    "collective_note": "one card: no collective", "collective_trace_s": None}
+        else:
+            with _moe_mode(moe_mode):
+                coll = collective_trace(cfg, shape, mesh, optimizer, dtype, long_window,
+                                        moe_mode)
+        cbytes = coll["collective_bytes_global"]
+        coll_term = None if cbytes is None else collective_term(cbytes, n)
+        if coll_term is not None:
+            terms["collective"] = coll_term
             dom_note = "largest of the compute, memory and collective terms"
         else:
-            cbytes = coll_term = None
-            coll_note = ("not measured: the JAX dry-run parses the collectives of "
-                         "the compiled HLO, and PyTorch produces none (ROADMAP.md)")
-            dom_note = ("largest of the compute and memory terms; the collective "
-                        "term is not measured on a mesh of more than one card")
+            dom_note = ("largest of the compute and memory terms; the collective term is "
+                        "not measured: " + coll["collective_note"])
         rec = {
             "arch": arch, "shape": shape_name, "kind": kind, "tag": tag,
             "mesh": mesh.shape, "chips": n, "dtype": str(dtype).replace("torch.", ""),
@@ -363,9 +493,7 @@ def dryrun_pair(arch: str, shape_name: str, meshes, *, dtype=torch.bfloat16,
             "executed_flops_breakdown": ex_f["breakdown"],
             "executed_bytes_global": ex_b["total"],
             "executed_bytes_breakdown": {k: v for k, v in ex_b.items() if k != "total"},
-            "collective_bytes_global": cbytes,
-            "collective_by_kind": {} if n == 1 else None,
-            "collective_note": coll_note,
+            **coll,
             "model_flops": mf,
             "useful_flops_ratio": mf / ex_f["total"] if ex_f["total"] else None,
             "moe_mode": moe_mode,
@@ -388,7 +516,9 @@ def dryrun_pair(arch: str, shape_name: str, meshes, *, dtype=torch.bfloat16,
         if verbose:
             _log(f"[{arch} x {shape_name} x {mesh.name}] kind={kind} trace={rec['trace']} "
                   f"args/device={arg_bytes / 2**30:.2f}GiB compute={compute_term:.4g}s "
-                  f"mem={memory_term:.4g}s dom={rec['dominant']}"
+                  f"mem={memory_term:.4g}s"
+                  + (f" coll={coll_term:.4g}s" if coll_term is not None else "")
+                  + f" dom={rec['dominant']}"
                   + (f" wall={rec['execute']['wall_ms']:.2f}ms" if "execute" in rec else ""))
     return records
 

@@ -9,10 +9,19 @@ so the mode keeps them, with the op's FLOPs, under that key and returns
 fresh meta tensors of the kept shapes on a repeat instead of running the
 meta function again. tests/test_torch_launch.py holds its FLOPs
 to FlopCounterMode's and its outputs to an uncached trace.
+
+`CollectiveCounter` is the dispatch mode of the collective trace: it sees
+each collective that a sharded step (DTensor) issues on one rank and adds
+up, by the JAX package's HLO kind, the bytes of the output that the rank
+holds, the quantity the JAX dry-run's `collective_bytes` sums from the
+per-device shapes of the compiled HLO. (`CommDebugMode` counts calls, not
+bytes; tests/test_torch_collectives.py holds the two counts of calls
+together.)
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -45,7 +54,9 @@ class MetaTrace(TorchDispatchMode):
     shapes, strides, dtypes and devices and its other arguments. A repeat
     of such a call returns fresh meta tensors of the recorded shapes and
     adds the recorded FLOPs (those of its decomposition too) without
-    running the meta function. Views and in-place ops always run."""
+    running the meta function. Views and in-place ops always run. An op on
+    DTensors is let through to DTensor, and the mode sees the ops on the
+    local meta shards that it lowers to."""
 
     def __init__(self):
         super().__init__()
@@ -72,6 +83,8 @@ class MetaTrace(TorchDispatchMode):
             self.flops[k] = self.flops.get(k, 0) + v
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t is not torch.Tensor and issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         self.calls += 1
         pure, decomposes, formula = self._op(func)
@@ -105,4 +118,61 @@ class MetaTrace(TorchDispatchMode):
                          if v != before.get(k, 0)]
                 self._cache[key] = ([(o.shape, o.stride(), o.dtype) for o in outs], delta,
                                     isinstance(out, tuple))
+        return out
+
+
+# collective op -> the JAX package's HLO kind; any other collective is
+# recorded under its own name
+JAX_KIND = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_out": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter", "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d", "_dtensor")
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd", "mesh_get_process_group",
+                    "check_for_nan"}
+
+
+def _out_bytes(out) -> int:
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (list, tuple)):
+        return sum(_out_bytes(o) for o in out)
+    return 0
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Counts the collectives one rank issues (module docstring):
+    `bytes_by_kind` and `calls_by_kind` under the JAX HLO kinds
+    (all-gather, all-reduce, reduce-scatter, all-to-all), any other
+    collective under its own op name. A DTensor op is let through to
+    DTensor, so the mode sees the collectives it lowers to."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes_by_kind = {}
+        self.calls_by_kind = {}
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t is not torch.Tensor and issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        ns = getattr(func, "namespace", None)
+        name = getattr(func, "_opname", None) or str(func)
+        if ns in _COLLECTIVE_NAMESPACES and name not in _NOT_COLLECTIVES:
+            kind = JAX_KIND.get(name, f"{ns}::{name}")
+            self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0) + _out_bytes(out)
+            self.calls_by_kind[kind] = self.calls_by_kind.get(kind, 0) + 1
         return out

@@ -6,9 +6,11 @@ autograd, through the plain torch route `impl="torch"`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
@@ -85,8 +87,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, impl: str = "torc
             loss, parts = loss_fn(live, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a leaf the loss does not read (llava's projector without patches)
-        # gets a zero gradient, as jax.grad gives it
-        by_leaf = {id(p): torch.zeros_like(p) if g is None else g
+        # gets a zero gradient, as jax.grad gives it; a sharded leaf's
+        # gradient takes the leaf's layout (its pending sums reduced there)
+        by_leaf = {id(p): torch.zeros_like(p) if g is None else _like(g, p)
                    for p, g in zip(leaves, grads)}
         with torch.no_grad():
             grads, gn = clip_by_global_norm(tree_map(lambda p: by_leaf[id(p)], live),
@@ -99,6 +102,25 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, impl: str = "torc
     return step
 
 
+def _like(g, p):
+    """g in p's layout where both are DTensors, else g."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _serving(step):
+    """step under torch.inference_mode(); under torch.no_grad() where the
+    parameters are DTensors (a sharded step), which inference mode does
+    not admit. The values are the same."""
+    @functools.wraps(step)
+    def run(params, *args):
+        sharded = isinstance(params["embed"], DTensor)
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return step(params, *args)
+    return run
+
+
 def make_prefill_step(cfg: ModelConfig, *, impl: str = "kernel",
                       long_window: Optional[int] = None):
     """prefill(params, cache, batch) -> (last_logits [B,V], cache).
@@ -108,7 +130,7 @@ def make_prefill_step(cfg: ModelConfig, *, impl: str = "kernel",
     long_window: the gemma2 long-context variant, where global layers
     attend over the sliding window."""
 
-    @torch.inference_mode()
+    @_serving
     def prefill(params, cache, batch):
         hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache, impl=impl,
                                        long_window=long_window, logits_mode="hidden")
@@ -123,7 +145,7 @@ def make_decode_step(cfg: ModelConfig, *, impl: str = "kernel",
     -> (logits [B,V], cache). One new token against the existing cache;
     impl as in `make_prefill_step`."""
 
-    @torch.inference_mode()
+    @_serving
     def decode(params, cache, tokens, positions):
         batch = {"tokens": tokens, "positions": positions}
         hidden, cache, _ = tfm.forward(params, cfg, batch, cache=cache, impl=impl,

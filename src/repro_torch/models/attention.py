@@ -24,6 +24,8 @@ from typing import Optional
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN_LOCAL
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import aconstrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import checkpointed, dense_init, rope
 
@@ -157,6 +159,33 @@ def sdpa_chunked(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return torch.cat(out, dim=1).reshape(B, Sq + qpad, nq, hd)[:, :Sq]
 
 
+def _attend(q, k, v, q_pos, kv_pos, **kw):
+    """`_sdpa`; under an active DeviceMesh on local shards: batch over the
+    data axes and heads over 'model' where they divide, the layout the
+    constraints pin on q, k and v. Where q's heads are split and the kv
+    heads are not (GQA with fewer kv heads than the axis), each shard
+    attends with the kv heads of its own q heads, as MHA."""
+    heads = ("batch", None, "model", None)
+    q_pl = autoshard.placements(q.shape, heads)
+    kv_pl = autoshard.placements(k.shape, heads)
+    if q_pl == autoshard.placements(q.shape, ("batch", None, None, None)):
+        kv_pl = autoshard.placements(k.shape, ("batch", None, None, None))
+    rows = ("batch", None)
+    nq, nkv = q.shape[2], k.shape[2]
+
+    def fn(q, k, v, qp, kp):
+        if q.shape[2] < nq and k.shape[2] == nkv:
+            n = q.shape[2]
+            idx = (torch.arange(n, device=k.device) + autoshard.model_coordinate() * n) \
+                // (nq // nkv)
+            k, v = k[:, :, idx], v[:, :, idx]
+        return _sdpa(q, k, v, qp, kp, **kw)
+
+    return autoshard.local(fn, (q_pl, kv_pl, kv_pl, autoshard.placements(q_pos.shape, rows),
+                                autoshard.placements(kv_pos.shape, rows)), (q_pl,))(
+        q, k, v, q_pos, kv_pos)
+
+
 def _sdpa(q, k, v, q_pos, kv_pos, *, causal, window, softcap, impl):
     if impl == "kernel":
         return ops.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
@@ -180,32 +209,34 @@ def attention(p, x, cfg, kind: str, positions, cache=None, cross_kv=None,
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ p["wq"]
     if "bq" in p:
-        q = q + p["bq"].to(q.dtype)
-    q = q.reshape(B, S, nq, hd)
+        q = autoshard.settle(q, ("batch", None, "model")) + p["bq"].to(q.dtype)
+    q = aconstrain(autoshard.split_last(q, nq, hd), ("batch", None, "model", None))
 
     if cross_kv is not None:
         if cfg.norm == "rmsnorm":
             q = rope(q, positions, cfg.rope_theta)
-        out = _sdpa(q, cross_kv["k"], cross_kv["v"], positions, cross_kv["pos"],
-                    causal=False, window=None, softcap=cfg.attn_softcap, impl=impl)
-        return out.reshape(B, S, nq * hd) @ p["wo"], cache
+        out = _attend(q, cross_kv["k"], cross_kv["v"], positions, cross_kv["pos"],
+                      causal=False, window=None, softcap=cfg.attn_softcap, impl=impl)
+        return autoshard.merge_last(out) @ p["wo"], cache
 
     k, v = x @ p["wk"], x @ p["wv"]
     if "bk" in p:
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        k = autoshard.settle(k, ("batch", None, "model")) + p["bk"].to(k.dtype)
+        v = autoshard.settle(v, ("batch", None, "model")) + p["bv"].to(v.dtype)
+    k = aconstrain(autoshard.split_last(k, nkv, hd), ("batch", None, "model", None))
+    v = aconstrain(autoshard.split_last(v, nkv, hd), ("batch", None, "model", None))
     q = rope(q, positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, nkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, nkv, hd)
+    k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if kind == ATTN_LOCAL else None
 
     if cache is not None:
         write = _cache_write_decode if S == 1 else _cache_write_prefill
-        write(cache, k, v, positions)
+        autoshard.write_local(write, cache, k, v, positions)
         k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
     else:
         k_all, v_all, kv_pos = k, v, positions
 
-    out = _sdpa(q, k_all, v_all, positions, kv_pos, causal=causal, window=window,
-                softcap=cfg.attn_softcap, impl=impl)
-    return out.reshape(B, S, nq * hd) @ p["wo"], cache
+    out = _attend(q, k_all, v_all, positions, kv_pos, causal=causal, window=window,
+                  softcap=cfg.attn_softcap, impl=impl)
+    out = aconstrain(out, ("batch", None, "model", None))
+    return autoshard.merge_last(out) @ p["wo"], cache

@@ -25,6 +25,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import aconstrain, logical_size
 from repro_torch.models.layers import dense_init
 
 
@@ -76,16 +78,60 @@ def router_topk(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 def moe_dense(p, x, cfg):
     """Dense mode. x: [B, S, d] -> (y, aux_loss)."""
     B, S, d = x.shape
-    xt = x.reshape(B * S, d)
+    xt = aconstrain(x.reshape(B * S, d), ("batch", None))
     combine, idx, aux = router_topk(p, xt, cfg)
-    w = torch.zeros((xt.shape[0], cfg.moe.num_experts), dtype=x.dtype,
-                    device=x.device).scatter_add_(1, idx, combine)   # [T, E]
     experts = {k: v for k, v in p.items() if k != "router"}
+    if autoshard.sharded_mesh() is not None:
+        return _moe_dense_sharded(experts, xt, combine, idx, cfg).reshape(B, S, d), aux
+    w = _expert_weights(combine, idx, cfg.moe.num_experts)
+    return _expert_sum(xt, w, experts, cfg.mlp_type).reshape(B, S, d), aux
+
+
+def _expert_weights(combine, idx, num_experts: int):
+    """[T, E]: each token's combine weight of each expert (0 where unrouted)."""
+    return torch.zeros((combine.shape[0], num_experts), dtype=combine.dtype,
+                       device=combine.device).scatter_add_(1, idx, combine)
+
+
+def _expert_sum(xt, w, experts, mlp_type: str):
+    """sum over experts e of ffn_e(xt) * w[:, e], in expert index order."""
     y = torch.zeros_like(xt)
-    for i in range(cfg.moe.num_experts):                # expert index order
+    for i in range(w.shape[1]):
         p_e = {k: v[i] for k, v in experts.items()}
-        y = y + _expert_ffn(p_e, xt, cfg.mlp_type) * w[:, i, None]
-    return y.reshape(B, S, d), aux
+        y = y + _expert_ffn(p_e, xt, mlp_type) * w[:, i, None]
+    return y
+
+
+def _moe_dense_sharded(experts, xt, combine, idx, cfg):
+    """The dense mode under an active DeviceMesh, on local shards: tokens
+    over the data axes; experts over 'model' where E divides by it (each
+    shard runs its own experts, the JAX rule's expert-parallel layout),
+    else the expert FFN's hidden width over 'model' (each shard a slice of
+    every expert). Each shard's sum is partial over 'model'."""
+    E = cfg.moe.num_experts
+    rows = autoshard.placements(xt.shape, ("batch", None))
+    k_rows = autoshard.placements(idx.shape, ("batch", None))
+    by_expert = E % logical_size("model") == 0
+    w_pl = autoshard.placements((xt.shape[0], E), ("batch", "model" if by_expert else None))
+    n = E // logical_size("model") if by_expert else E
+
+    def own_weights(c, i):       # this shard's experts' columns
+        return _expert_weights(c, i, E)[:, autoshard.model_coordinate() * n:][:, :n]
+
+    w = autoshard.local(own_weights, (k_rows, k_rows), (w_pl,))(combine, idx)
+    names = sorted(experts)
+    leaf_pl = []
+    for name in names:
+        shape = experts[name].shape
+        hidden = (None, None, "model") if name != "w_down" else (None, "model", None)
+        leaf_pl.append(autoshard.placements(shape, ("model", None, None) if by_expert else hidden))
+
+    def run(xt, w, *leaves):
+        return _expert_sum(xt, w, dict(zip(names, leaves)), cfg.mlp_type)
+
+    return autoshard.local(run, (rows, w_pl) + tuple(leaf_pl),
+                           (autoshard.partial_over_model(rows),))(
+        xt, w, *(experts[name] for name in names))
 
 
 def moe_sorted(p, x, cfg, capacity_factor: float = 1.25, n_groups: int = 1):
@@ -99,43 +145,103 @@ def moe_sorted(p, x, cfg, capacity_factor: float = 1.25, n_groups: int = 1):
         n_groups = 1
     G = n_groups
     Tg = T_all // G
-    dev = x.device
+    sharded = autoshard.sharded_mesh() is not None
+    if sharded:
+        # DTensor regroups tokens only from whole rows (no sequence split)
+        x = x.redistribute(x.device_mesh, autoshard.placements(x.shape, ("batch", None, None)))
 
     xt = x.reshape(T_all, d)
+    if G > 1:
+        xt = aconstrain(xt.reshape(G, Tg, d), ("batch", None, None)).reshape(T_all, d)
     combine, idx, aux = router_topk(p, xt, cfg)
     C = int(-(-Tg * k * capacity_factor // E))
+    if sharded:
+        xb, buf_w, buf_tok = _dispatch_sharded(xt, combine, idx, G, E, C)
+    else:
+        xb, buf_w, buf_tok = _dispatch(xt, combine, idx, G, E, C)
 
-    # One dispatch for all groups: group g's expert e is key g*E + e, so a
-    # stable sort by key orders each group's entries as its own sort would.
-    flat_tok = torch.arange(T_all, device=dev).repeat_interleave(k)      # [T_all*k]
-    key = (flat_tok // Tg) * E + idx.reshape(-1)
-    order = torch.argsort(key, stable=True)
-    skey, stok, sw = key[order], flat_tok[order], combine.reshape(-1)[order]
-    pos = torch.arange(T_all * k, device=dev) - torch.searchsorted(skey, skey, side="left")
-    # a dropped entry goes to the spare last row, which is cut off
-    dest = torch.where(pos < C, skey * C + pos, G * E * C)
-    buf = torch.zeros((G * E * C + 1, d), dtype=x.dtype, device=dev)
-    buf[dest] = xt[stok]
-    buf_w = torch.zeros((G * E * C + 1,), dtype=x.dtype, device=dev)
-    buf_w[dest] = sw
-    buf_tok = torch.full((G * E * C + 1,), T_all, dtype=torch.long, device=dev)
-    buf_tok[dest] = stok
-    xb = buf[:-1].reshape(G, E, C, d)
-
-    # The reference lays the dispatch buffer out expert-parallel over its
-    # "model" mesh axis (feature-parallel where E does not divide it). On
-    # one card that axis has size 1, every E divides it, and the first,
-    # expert-parallel spec is the one taken; it is a layout hint with no
-    # effect on the values, so nothing here stands for it.
+    # expert-parallel over "model", feature-parallel where E does not divide it
+    exp_spec = ("batch", "model", None, None)
+    if E % max(logical_size("model"), 1):
+        exp_spec = ("batch", None, None, "model")
+    xb = aconstrain(xb, exp_spec)
     up = torch.einsum("gecd,edf->gecf", xb, p["w_up"])
     if "w_gate" in p:
         hidden = _act(torch.einsum("gecd,edf->gecf", xb, p["w_gate"]), cfg.mlp_type) * up
     else:
         hidden = F.gelu(up, approximate="tanh")
-    yb = torch.einsum("gecf,efd->gecd", hidden, p["w_down"])
-    yb = yb.reshape(G * E * C, d) * buf_w[:-1, None]
-    y = torch.zeros((T_all + 1, d), dtype=x.dtype, device=dev).index_add_(0, buf_tok[:-1], yb)[:-1]
-    return y.reshape(B, S, d), aux
+    hidden = aconstrain(hidden, exp_spec)
+    yb = aconstrain(torch.einsum("gecf,efd->gecd", hidden, p["w_down"]), exp_spec)
+    if sharded:
+        return _combine_sharded(yb, buf_w, buf_tok, Tg).reshape(B, S, d), aux
+    return _combine(yb.reshape(G * E * C, d), buf_w, buf_tok, T_all).reshape(B, S, d), aux
+
+
+def _dispatch(xt, combine, idx, G: int, E: int, C: int):
+    """The sorted dispatch of T = xt.shape[0] tokens in G groups: (xb
+    [G,E,C,d], buf_w [G*E*C], buf_tok [G*E*C], the token of each buffer
+    row, T where the row is empty).
+
+    One dispatch for all groups: group g's expert e is key g*E + e, so a
+    stable sort by key orders each group's entries as its own sort would."""
+    T, d = xt.shape
+    k = idx.shape[-1]
+    Tg = T // G
+    dev = xt.device
+    flat_tok = torch.arange(T, device=dev).repeat_interleave(k)      # [T*k]
+    key = (flat_tok // Tg) * E + idx.reshape(-1)
+    order = torch.argsort(key, stable=True)
+    skey, stok, sw = key[order], flat_tok[order], combine.reshape(-1)[order]
+    pos = torch.arange(T * k, device=dev) - torch.searchsorted(skey, skey, side="left")
+    # a dropped entry goes to the spare last row, which is cut off
+    dest = torch.where(pos < C, skey * C + pos, G * E * C)
+    buf = torch.zeros((G * E * C + 1, d), dtype=xt.dtype, device=dev)
+    buf[dest] = xt[stok]
+    buf_w = torch.zeros((G * E * C + 1,), dtype=xt.dtype, device=dev)
+    buf_w[dest] = sw
+    buf_tok = torch.full((G * E * C + 1,), T, dtype=torch.long, device=dev)
+    buf_tok[dest] = stok
+    return buf[:-1].reshape(G, E, C, d), buf_w[:-1], buf_tok[:-1]
+
+
+def _combine(yb, buf_w, buf_tok, T: int):
+    """[T, d]: each token's sum of its buffer rows yb [G*E*C, d], weighted."""
+    yb = yb * buf_w[:, None]
+    return torch.zeros((T + 1, yb.shape[-1]), dtype=yb.dtype,
+                       device=yb.device).index_add_(0, buf_tok, yb)[:-1]
+
+
+def _dispatch_sharded(xt, combine, idx, G: int, E: int, C: int):
+    """`_dispatch` under an active DeviceMesh, on local shards: each shard
+    dispatches its own groups (the groups over the data axes where G
+    divides by them, every group on every shard otherwise). Returns xb
+    [G,E,C,d], buf_w and buf_tok [G, E*C] as DTensors, groups first."""
+    T, d = xt.shape
+    Tg = T // G
+    grp = autoshard.placements((G, Tg, d), ("batch", None, None))
+
+    def run(xt, combine, idx):
+        g = xt.shape[0]
+        xb, w, tok = _dispatch(xt.reshape(g * Tg, d), combine.reshape(g * Tg, -1),
+                               idx.reshape(g * Tg, -1), g, E, C)
+        return xb, w.reshape(g, E * C), tok.reshape(g, E * C)
+
+    return autoshard.local(run, (grp, grp, grp), (grp, grp, grp))(
+        xt.reshape(G, Tg, d), combine.reshape(G, Tg, -1), idx.reshape(G, Tg, -1))
+
+
+def _combine_sharded(yb, buf_w, buf_tok, Tg: int):
+    """`_combine` under an active DeviceMesh, on each shard's groups (the
+    buffer's token indices are the shard's own): yb [G,E,C,d] -> [G, Tg, d]."""
+    G, E, C, d = yb.shape
+    grp = autoshard.placements(yb.shape, ("batch", None, None, None))
+
+    def run(yb, w, tok):
+        g = yb.shape[0]
+        return _combine(yb.reshape(g * E * C, d), w.reshape(-1), tok.reshape(-1),
+                        g * Tg).reshape(g, Tg, d)
+
+    return autoshard.local(run, (grp, grp, grp), (grp,))(yb, buf_w, buf_tok)
 
 
 def sorted_groups(T: int) -> int:

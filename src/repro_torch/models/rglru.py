@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import aconstrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import causal_conv1d, dense_init, init_conv1d
 
@@ -63,14 +65,24 @@ def lru_scan(log_a, b):
     return torch.stack(hs, dim=1)
 
 
+def _by_width(scan, log_a, b, *h0):
+    """scan(log_a, b, *h0); under an active DeviceMesh on local shards
+    (batch over the data axes, width over 'model': the recurrence is
+    elementwise over both)."""
+    pl = autoshard.placements(b.shape, ("batch", None, "model"))
+    pl_h = tuple(None if h is None else autoshard.placements(h.shape, ("batch", "model"))
+                 for h in h0)
+    return autoshard.local(scan, (pl, pl) + pl_h, (pl,))(log_a, b, *h0)
+
+
 def rglru_block(p, x, cfg, state=None, impl: str = "kernel"):
     """x: [B, S, d]. state: None or {"h": [B,W] fp32, "conv": [B,K-1,W]}.
     impl: "kernel" or "torch" (module docstring).
 
     Returns (y [B,S,d], new_state)."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    u, new_conv = causal_conv1d(p["conv"], x @ p["w_x"],
-                                None if state is None else state["conv"])
+    gate = aconstrain(F.gelu(x @ p["w_gate"], approximate="tanh"), ("batch", None, "model"))
+    u = aconstrain(x @ p["w_x"], ("batch", None, "model"))
+    u, new_conv = causal_conv1d(p["conv"], u, None if state is None else state["conv"])
     log_a, b = _gates(p, u)
     if state is not None and x.shape[1] == 1:
         # decode: single-step update
@@ -78,11 +90,13 @@ def rglru_block(p, x, cfg, state=None, impl: str = "kernel"):
         h_seq, new_h = h[:, None], h
     elif impl == "kernel":
         # the incoming state is the scan's initial state
-        h0 = None if state is None else state["h"].float().contiguous()
-        h_seq = ops.rglru_scan(log_a.contiguous(), b.contiguous(), h0)
+        h0 = None if state is None else state["h"].float()
+        h_seq = _by_width(lambda la, bb, h0: ops.rglru_scan(
+            la.contiguous(), bb.contiguous(), None if h0 is None else h0.contiguous()),
+            log_a, b, h0)
         new_h = h_seq[:, -1]
     elif impl == "torch":
-        h_seq = lru_scan(log_a, b)
+        h_seq = _by_width(lru_scan, log_a, b)
         if state is not None:
             # fold the incoming state into the whole scan: h_t += (prod a) h0
             h_seq = h_seq + torch.exp(torch.cumsum(log_a, dim=1)) * state["h"].float()[:, None]

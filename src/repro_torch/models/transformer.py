@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, BLOCK_MLSTM,
                                       BLOCK_RGLRU, BLOCK_SLSTM, ModelConfig)
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import aconstrain
 from repro_torch.models import xlstm as xl
 from repro_torch.models.attention import (attention, init_attention,
                                           init_kv_cache)
@@ -142,6 +144,12 @@ def _apply_layer(p, x, cfg, kind: str, positions, cache, *, cross_kv=None,
     {"k", "v", "pos"}, which an encoder-decoder layer requires."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = dict(cache) if cache is not None else None
+    # under an active DeviceMesh the residual's sequence split (between the
+    # scanned groups) is gathered, as the JAX program gathers it for the
+    # layer's projections (DTensor before torch 2.13 cannot flatten a split
+    # sequence into a matmul's rows, nor its gradient), and a pending sum
+    # is reduced into rows
+    x = autoshard.settle(autoshard.gather_seq(x), ("batch", None, None))
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         # long-context serving variant (gemma2): global layers take the
         # sliding window, so long decode stays sub-quadratic
@@ -182,10 +190,33 @@ def _apply_layer(p, x, cfg, kind: str, positions, cache, *, cross_kv=None,
 
 
 def _embed_tokens(params, cfg, tokens):
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def _lookup(table, tokens):
+    """table[tokens]. Under an active DeviceMesh on local shards, as the
+    JAX program partitions a gather from a vocab-split table: each shard
+    looks up the tokens of its own vocab rows (zeros for the others), a
+    partial sum over 'model'; the rows over the data axes."""
+    V = table.shape[0]
+    t_pl = autoshard.placements(table.shape, ("model", None))
+    ids = autoshard.placements(tokens.shape, ("batch", None))
+    out = autoshard.placements(tuple(tokens.shape) + (table.shape[1],), ("batch", None, None))
+    if any(p.is_shard(0) for p in t_pl or ()):
+        out = autoshard.partial_over_model(out)
+
+    def own_rows(t, i):
+        n = t.shape[0]
+        if n == V:
+            return t[i]
+        i = i.long() - autoshard.model_coordinate() * n
+        ok = (i >= 0) & (i < n)
+        return t[i.clamp(0, n - 1)] * ok[..., None].to(t.dtype)
+
+    return autoshard.local(own_rows, (t_pl, ids), (out,))(table, tokens)
 
 
 def _arange_rows(B: int, n: int, device):
@@ -242,7 +273,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     logits_mode: "full" -> [B,S,V] fp32 logits; "hidden" -> final hidden."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
+    x = aconstrain(_embed_tokens(params, cfg, tokens), ("batch", None, None))
 
     n_front = 0
     if cfg.modality == "vision" and "patch_embeds" in batch:
@@ -270,17 +301,26 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers = []
+    plen = len(cfg.pattern)
+    grouped = (cfg.num_layers // plen) * plen
     for i, kind in enumerate(cfg.layer_kinds):
+        # the residual between the JAX package's scanned groups is
+        # sequence-parallel (Megatron-SP): batch over the data axes, the
+        # sequence over 'model'
+        if i < grouped and i % plen == 0:
+            x = aconstrain(x, ("batch", "model", None))
         layer = functools.partial(_apply_layer, params["layers"][i], cfg=cfg, kind=kind,
                                   positions=positions,
                                   cache=None if cache is None else cache["layers"][i],
                                   cross_kv=cross[i], long_window=long_window, impl=impl)
         x, c, a = checkpointed(layer, x) if remat else layer(x)
+        if i < grouped and i % plen == plen - 1:
+            x = aconstrain(x, ("batch", "model", None))
         new_layers.append(c)
         aux = aux + a
     if cache is not None:
         cache = {"layers": new_layers}
-    x = apply_norm(params["final_norm"], x)
+    x = apply_norm(params["final_norm"], autoshard.gather_seq(x))
     if n_front:
         x = x[:, n_front:]
     if logits_mode == "hidden":
@@ -301,10 +341,47 @@ def unembed(params, cfg, x):
 # Loss: chunked-vocab cross entropy, never all [B,S,V] logits at once
 # ---------------------------------------------------------------------------
 def _xent_chunk(params, cfg, h, t, m):
-    logits = unembed(params, cfg, h)                       # [B,chunk,V] fp32
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    logits = aconstrain(unembed(params, cfg, h), ("batch", None, "model"))  # [B,chunk,V] fp32
+    if autoshard.sharded_mesh() is not None:
+        lse, ll = _sharded_lse_and_pick(logits, t)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, t.long()[..., None])[..., 0]
     return ((lse - ll) * m).sum(), m.sum()
+
+
+def _sharded_lse_and_pick(logits, t):
+    """(logsumexp over the vocab, the target's logit) of DTensor logits
+    [B,chunk,V] whose vocab may be split over 'model', as the JAX program
+    partitions logsumexp and take_along_axis: each shard's max, sum of
+    exponentials and masked pick of the target, left as partial results
+    (max, sum, sum) that DTensor reduces across the shards."""
+    from torch.distributed.tensor import Partial
+    pl = logits.placements
+    rows = autoshard.placements(t.shape, ("batch", None))
+
+    def partial(op):
+        return tuple(Partial(op) if p.is_shard(2) else p for p in pl)
+
+    def shard_max(l):
+        return l.detach().amax(-1)
+
+    def shard_sumexp(l, mx):
+        return torch.exp(l - mx[..., None]).sum(-1)
+
+    def shard_pick(l, t):
+        n = l.shape[-1]
+        tl = t.long() - autoshard.model_coordinate() * n if n < logits.shape[-1] else t.long()
+        ok = (tl >= 0) & (tl < n)
+        g = torch.gather(l, -1, tl.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(ok, g, torch.zeros_like(g))
+
+    mx = autoshard.local(shard_max, (pl,), (partial("max"),))(logits).redistribute(
+        logits.device_mesh, rows)
+    se = autoshard.local(shard_sumexp, (pl, rows), (partial("sum"),))(logits, mx)
+    lse = torch.log(se.redistribute(logits.device_mesh, rows)) + mx
+    ll = autoshard.local(shard_pick, (pl, rows), (partial("sum"),))(logits, t)
+    return lse, ll.redistribute(logits.device_mesh, rows)
 
 
 def chunked_xent(params, cfg, hidden, targets, mask, chunk: int = XENT_CHUNK):

@@ -28,6 +28,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import aconstrain, merge_last, split_last
 from repro_torch.models.layers import (causal_conv1d, checkpointed, dense_init,
                                        init_conv1d, init_layernorm, layernorm)
 
@@ -147,15 +150,15 @@ def mlstm_block(p, x, cfg, state=None):
     inner = _inner(cfg)
     h = cfg.num_heads
     hd = p["norm"]["scale"].shape[0]
-    u = x @ p["w_up"]
-    z = x @ p["w_z"]
+    u = aconstrain(x @ p["w_up"], ("batch", None, "model"))
+    z = aconstrain(x @ p["w_z"], ("batch", None, "model"))
     uc, new_conv = causal_conv1d(p["conv"], F.silu(u),
                                  None if state is None else state["conv"])
 
-    q = (uc @ p["wq"]).reshape(B, S, h, hd).float() * (hd ** -0.5)
-    k = (uc @ p["wk"]).reshape(B, S, h, hd).float() * (hd ** -0.5)
-    v = (u @ p["wv"]).reshape(B, S, h, hd).float()
-    gates = (uc @ p["w_if"]).float() + p["b_if"].float()
+    q = split_last(uc @ p["wq"], h, hd).float() * (hd ** -0.5)
+    k = split_last(uc @ p["wk"], h, hd).float() * (hd ** -0.5)
+    v = split_last(u @ p["wv"], h, hd).float()
+    gates = autoshard.settle(uc @ p["w_if"], ("batch", None, None)).float() + p["b_if"].float()
     it, ft = gates[..., :h], F.logsigmoid(gates[..., h:])
 
     if state is None:
@@ -165,15 +168,37 @@ def mlstm_block(p, x, cfg, state=None):
     else:
         cell = {key: state[key] for key in ("C", "n", "m")}
 
-    if S == 1 and state is not None:
-        cell, h_out = _mlstm_cell_step(cell, q[:, 0], k[:, 0], v[:, 0], it[:, 0], ft[:, 0])
-        hs = h_out[:, None]
-    else:
-        hs, cell = mlstm_seq(q, k, v, it, ft, cell)
+    run = _mlstm_decode if S == 1 and state is not None else mlstm_seq
+    hs, cell = _mlstm_by_head(run, q, k, v, it, ft, cell)
 
     hs = layernorm(p["norm"], hs)                          # per-head groupnorm
-    y = (hs.reshape(B, S, inner).to(x.dtype) * F.silu(z)) @ p["w_down"]
+    y = (merge_last(hs).to(x.dtype) * F.silu(z)) @ p["w_down"]
     return y, {**cell, "conv": new_conv}
+
+
+def _mlstm_decode(q, k, v, it, ft, cell):
+    """The one-step update of a decode token, as `mlstm_seq` returns it."""
+    cell, h_out = _mlstm_cell_step(cell, q[:, 0], k[:, 0], v[:, 0], it[:, 0], ft[:, 0])
+    return h_out[:, None], cell
+
+
+def _mlstm_by_head(run, q, k, v, it, ft, cell):
+    """run (`mlstm_seq` or `_mlstm_decode`); under an active DeviceMesh on
+    local shards: batch over the data axes, heads over 'model' where they
+    divide (the cell is independent per row and per head)."""
+    pl4 = autoshard.placements(q.shape, ("batch", None, "model", None))
+    pl3 = autoshard.placements(it.shape, ("batch", None, "model"))
+    st = {key: autoshard.placements(cell[key].shape, ("batch", "model") + (None,) * (cell[key].ndim - 2))
+          for key in ("C", "n", "m")}
+
+    def cell_run(q, k, v, it, ft, C, n, m):
+        hs, c = run(q, k, v, it, ft, {"C": C, "n": n, "m": m})
+        return hs, c["C"], c["n"], c["m"]
+
+    hs, C, n, m = autoshard.local(cell_run, (pl4, pl4, pl4, pl3, pl3, st["C"], st["n"], st["m"]),
+                                  (pl4, st["C"], st["n"], st["m"]))(
+        q, k, v, it, ft, cell["C"], cell["n"], cell["m"])
+    return hs, {"C": C, "n": n, "m": m}
 
 
 def init_mlstm_state(cfg, batch: int, dtype, device):
@@ -235,17 +260,36 @@ def slstm_block(p, x, cfg, state=None):
     """x: [B,S,d] -> (y, new_state). A loop over S: the fp32 recurrent
     matrices and the biased inputs are made once, outside it."""
     B, S, _ = x.shape
-    xin = x @ p["w_in"]
+    xin = aconstrain(x @ p["w_in"], ("batch", None, "model"))
     if state is None:
         state = init_slstm_state(cfg, B, x.dtype, x.device)
     r = p["r"].float()
     pre = xin.float() + p["b"].float()
+    hs, state = _slstm_scan(r, pre, state)
+    hs = layernorm(p["norm"], hs).to(x.dtype)
+    return hs @ p["w_down"], state
+
+
+def _slstm_loop(r, pre, c, n, m, h):
+    state = {"c": c, "n": n, "m": m, "h": h}
     hs = []
-    for t in range(S):
+    for t in range(pre.shape[1]):
         state = _slstm_step(r, state, pre[:, t])
         hs.append(state["h"])
-    hs = layernorm(p["norm"], torch.stack(hs, dim=1)).to(x.dtype)
-    return hs @ p["w_down"], state
+    return (torch.stack(hs, dim=1),) + tuple(state[key] for key in ("c", "n", "m", "h"))
+
+
+def _slstm_scan(r, pre, state):
+    """The loop over S: (h [B,S,inner], new state). Under an active
+    DeviceMesh on local shards, batch over the data axes; the h->h
+    recurrence mixes each head's width, so the width is whole."""
+    keys = ("c", "n", "m", "h")
+    rep = autoshard.placements(r.shape, (None,) * r.ndim)
+    seq = autoshard.placements(pre.shape, ("batch", None, None))
+    row = autoshard.placements(state["c"].shape, ("batch", None))
+    out = autoshard.local(_slstm_loop, (rep, seq) + (row,) * 4, (seq,) + (row,) * 4)(
+        r, pre, *(state[key] for key in keys))
+    return out[0], dict(zip(keys, out[1:]))
 
 
 def init_slstm_state(cfg, batch: int, dtype, device):

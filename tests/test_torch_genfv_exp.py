@@ -177,12 +177,10 @@ def test_sweep_matches_single_runs_bitwise(planner):
 
 
 def test_sweep_generator_factory():
-    """The JAX Sweep's `generator_factory=` hands each cell's runner the
-    generator it makes. The port's Sweep takes no factory (no caller sets
-    one); its counterpart is the runner's own `generator=`: each cell run
-    alone through `GenFVRunner(cell.run, generator=...)` serves its AIGC
-    images from the generator given, and an oracle given so reproduces the
-    port's sweep bitwise."""
+    """`Sweep(generator_factory=)` hands each cell's runner the generator
+    it makes, as the JAX Sweep's does: each cell serves its AIGC images
+    from its own generator, and oracles given so reproduce the sweep
+    without a factory, and each cell run alone, bitwise."""
     spec = ExperimentSpec(name="factory", strategies=("genfv", "fedavg"),
                           scenarios=("rush_hour",), base=RunConfig(**FAST))
 
@@ -193,17 +191,24 @@ def test_sweep_generator_factory():
             self.calls += 1
             return super().generate(*args, **kw)
 
-    result = _sweep(spec).run()
+    plain = _sweep(spec).run()
     made = []
+    sweep = _sweep(spec, generator_factory=lambda c: made.append(Counting(c.run.dataset))
+                   or made[-1])
     for cell in spec.expand():
-        made.append(Counting(cell.run.dataset))
-        runner = GenFVRunner(cell.run, fl_cfg=FAST_CFG, generator=made[-1], device="cpu")
-        assert runner.server.generator is made[-1]
-        single = runner.train()
+        assert sweep._make_runner(cell).server.generator is made[-1]
+    made.clear()
+    result = sweep.run()
+    assert len(made) == len(spec.expand())
+    for cell in spec.expand():
+        single = GenFVRunner(cell.run, fl_cfg=FAST_CFG, device="cpu").train()
         for key in PARITY_KEYS:
+            np.testing.assert_array_equal(result.metrics[key][cell.index],
+                                          plain.metrics[key][cell.index],
+                                          err_msg=f"{cell.strategy}/{key}")
             np.testing.assert_array_equal(result.metrics[key][cell.index], single.curve(key),
                                           err_msg=f"{cell.strategy}/{key}")
-    assert made[0].calls > 0           # genfv generates; fedavg does not
+    assert made[0].calls > 0 and made[1].calls == 0   # genfv generates; fedavg does not
 
     jspec = JExperimentSpec(name="factory", strategies=("genfv", "fedavg"),
                             scenarios=("rush_hour",), base=JRunConfig(**FAST))

@@ -346,12 +346,11 @@ def test_sequential_aggregate_equals_the_reference(n, with_aug):
 @pytest.mark.parametrize("n,with_aug,given", [(3, True, "rhos"), (3, True, "kappa_emds"),
                                               (4, True, "both"), (2, False, "both")])
 def test_sequential_aggregate_overrides_equal_the_reference(n, with_aug, given):
-    """The JAX server's `aggregate(rhos=, kappa_emds=)`: given weights
-    override `data_weights(sizes)`, given EMDs override the mean EMD of
-    `emds`. The port's server takes neither (no caller sets them); its
-    counterpart is eq. 4 itself, `core.emd.aggregate` with those weights
-    and the given EMDs' mean, which must give the JAX result bit for bit
-    and differ from the call without the overrides."""
+    """`aggregate(rhos=, kappa_emds=)`: given weights override
+    `data_weights(sizes)`, given EMDs override the mean EMD of `emds`. The
+    port's server must give the JAX server's result bit for bit, equal
+    eq. 4 itself (`core.emd.aggregate` with those weights and the given
+    EMDs' mean), and differ from the call without the overrides."""
     rng = np.random.default_rng(40 + n)
     p, aug = _trees(rng, 2)
     models = _trees(rng, n)
@@ -366,12 +365,17 @@ def test_sequential_aggregate_overrides_equal_the_reference(n, with_aug, given):
     js = JServer(None, jax.tree.map(jnp.asarray, p), JOracle("cifar10"), None)
     ref, rk = js.aggregate([jax.tree.map(jnp.asarray, m) for m in models], sizes, emds,
                            jax.tree.map(jnp.asarray, aug) if with_aug else None, **kw)
+    ts = GenFVServer(None, _t(p), OracleGenerator("cifar10"), None)
+    got, tk = ts.aggregate([_t(m) for m in models], sizes, emds,
+                           _t(aug) if with_aug else None, **kw)
+    assert tk == rk
+    _same_tree(got, ref)
     # the FL-only case is plain weighted FedAvg (kappa2 = 0), as in the server
     emd_bar = t_emd.mean_emd(kappa_emds) if with_aug else 0.0
-    got = t_emd.aggregate([_t(m) for m in models], rhos,
+    eq4 = t_emd.aggregate([_t(m) for m in models], rhos,
                           _t(aug) if with_aug else _t(models[0]), emd_bar)
-    assert t_emd.kappas(emd_bar) == rk
-    _same_tree(got, ref)
+    assert t_emd.kappas(emd_bar) == tk
+    _same_tree(got, {k: v.numpy() for k, v in eq4.items()})
     plain, _ = GenFVServer(None, _t(p), OracleGenerator("cifar10"), None).aggregate(
         [_t(m) for m in models], sizes, emds, _t(aug) if with_aug else None)
     assert any(not torch.equal(got[k], plain[k]) for k in SHAPES)
