@@ -7,8 +7,11 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version on the card: flash
      attention in fp32 and bf16 on the test cases, ring-buffer caches with
      fully-masked rows, decode splits with an empty lane, and prefill
-     blocks that mix skipped tiles and rows without a valid slot; the
-     scan with and without an incoming state;
+     blocks that mix skipped tiles and rows without a valid slot, and the
+     hd-64 routes' cases (L2's qwen1.5-0.5b decode, ragged last splits,
+     causal prefix prefills, a ring prefill without a full tile, whisper's
+     non-causal frames with empty slots, g = 4); the scan with and
+     without an incoming state;
   4. serve recurrentgemma-9b at full width in bf16 through ServeEngine and
      check, by the launch counters, that the serving path ran the kernels;
      then the attention LM families (phase `families`): F1 holds the flash
@@ -39,7 +42,10 @@ Phases, each fatal on failure:
      ms, the roofline share, peak memory against the predicted arguments,
      flash and scan launches); the flash and scan shapes L2 adds held
      against their plain versions; L3 the GenFV weighted all-reduce on a
-     one-rank NCCL group, bit for bit;
+     one-rank NCCL group, bit for bit; L4 the sharded qwen1.5-0.5b steps
+     on a one-rank NCCL mesh, bit for bit; L5 the sharded prefill, decode
+     and train step of a reduced xlstm-1.3b on four gloo ranks of the
+     machine's CPU against the plain steps;
   5. check that continuous batching equals isolated generation on the card
      (full width, reduced depth, fp32), and that the reduced model on the
      card gives the logits it gives on the CPU;
@@ -72,7 +78,9 @@ Phases, each fatal on failure:
   7. time each kernel at the serving shapes (recurrentgemma-9b's and
      gemma2-9b's) and at the launch phase's new shapes beside its bound,
      its plain version and, for attention without softcap, PyTorch's
-     scaled_dot_product_attention.
+     scaled_dot_product_attention (also without its boolean mask where
+     the mask is plain causal or none; the faster is the library time,
+     and the backend SDPA takes for each).
 
 Run from the repository root:  python3 chip_smoke.py
 Without a CUDA device it exits non-zero and prints no result. It prints the
@@ -210,7 +218,8 @@ def build_kernels():
 
 
 KERNELS = ("flash_fwd_kernel", "flash_decode_kernel", "flash_combine_kernel",
-           "flash_prefill_kernel", "mean_v_kernel", "chunk_summary", "chunk_carry", "chunk_scan")
+           "flash_prefill_kernel", "flash_prefill64_kernel", "prefill_prep_kernel",
+           "chunk_summary", "chunk_carry", "chunk_scan")
 
 
 def _kernel_name(mangled):
@@ -356,6 +365,55 @@ def attention_cases(gen, device, dtype):
         cases.append((f"prefill 700 rows hd {hd} Skv {Skv} window {window}, mixed blocks",
                       (q, k, v, q_pos, ring_positions([700, 400], Skv, device)),
                       {"window": window}))
+    return cases + hd64_attention_cases(gen, device, dtype)
+
+
+def hd64_attention_cases(gen, device, dtype):
+    """The hd-64 routes (qwen1.5-0.5b, minicpm-2b, whisper-tiny): the
+    decode of L2's qwen_decode_b8 itself (every slot valid); decodes whose
+    last split is ragged (Skv 32767 and 1000) with an empty lane and a
+    window; causal prefix prefills of 4096 and 700 rows (full tiles below
+    the diagonal, a ragged last block); a ring-position windowed prefill in
+    which no tile is full; whisper's non-causal 1500 x 1500 with empty
+    slots; and grouped query heads (g = 4) at prefill and decode."""
+    cases = []
+    arch, B, _, slots, _ = LAUNCH_FLASH["qwen_decode_b8"]
+    q, k, v = attn_inputs(gen, B, 1, slots, 16, 16, 64, dtype, device)
+    cases.append((f"hd 64 decode, L2's {arch} shape {B} x {slots}",
+                  (q, k, v, torch.full((B, 1), slots - 1, dtype=torch.int32, device=device),
+                   torch.arange(slots, dtype=torch.int32, device=device)[None].repeat(B, 1)),
+                  {"window": None}))
+    for Skv in (32767, 1000):
+        lengths = [Skv + 900, Skv, Skv // 3, 0]
+        q, k, v = attn_inputs(gen, 4, 1, Skv, 16, 16, 64, dtype, device)
+        cases.append((f"hd 64 decode Skv {Skv} window {Skv - 100} with an empty lane",
+                      (q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)[:, None],
+                       ring_positions(lengths, Skv, device)), {"window": Skv - 100}))
+    for S, B, heads in ((4096, 1, 8), (700, 2, 16)):
+        q, k, v = attn_inputs(gen, B, S, S, heads, heads, 64, dtype, device)
+        pos = torch.arange(S, dtype=torch.int32, device=device)[None].repeat(B, 1)
+        cases.append((f"hd 64 causal prefix prefill {S} rows", (q, k, v, pos, pos), {}))
+    q, k, v = attn_inputs(gen, 1, 700, 512, 16, 16, 64, dtype, device)
+    cases.append(("hd 64 prefill of positions 600-1299 against a 512-slot ring, window 128: "
+                  "no tile full",
+                  (q, k, v, torch.arange(600, 1300, dtype=torch.int32, device=device)[None],
+                   ring_positions([1300], 512, device)), {"window": 128}))
+    frames = torch.arange(1500, dtype=torch.int32, device=device)[None].repeat(2, 1)
+    kv_pos = frames.clone()
+    kv_pos[1, 1400:] = -1
+    kv_pos[:, 200:260:3] = -1
+    q, k, v = attn_inputs(gen, 2, 1500, 1500, 6, 6, 64, dtype, device)
+    cases.append(("hd 64 non-causal prefill 1500 x 1500 with empty slots",
+                  (q, k, v, frames, kv_pos), {"causal": False}))
+    lengths = [2048, 900, 33, 0]
+    q, k, v = attn_inputs(gen, 4, 1, 2048, 16, 4, 64, dtype, device)
+    cases.append(("hd 64 decode 16/4 heads with an empty lane",
+                  (q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)[:, None],
+                   ring_positions(lengths, 2048, device)), {}))
+    q, k, v = attn_inputs(gen, 2, 700, 1024, 16, 4, 64, dtype, device)
+    cases.append(("hd 64 prefill 700 rows 16/4 heads",
+                  (q, k, v, torch.arange(700, dtype=torch.int32, device=device)[None].repeat(2, 1),
+                   ring_positions([700, 400], 1024, device)), {}))
     return cases
 
 
@@ -2424,11 +2482,13 @@ L1_COLLECTIVE_BEYOND = (("xlstm-1.3b", "prefill_32k"), ("xlstm-1.3b", "train_4k"
 L1_AGAINST_JAX = {
     ("qwen1.5-0.5b", "train_4k"): (108_877_667_292, {"2.13": 2.094, "2.11": 2.045}),
     ("qwen1.5-0.5b", "prefill_32k"): (40_736_582_460, {"2.13": 12.931, "2.11": 16.631}),
-    ("qwen1.5-0.5b", "decode_32k"): (1_638_392_184, {"2.13": 4.010, "2.11": 4.110}),
+    ("qwen1.5-0.5b", "decode_32k"): (1_638_392_184, {"2.13": 4.041, "2.11": 4.112}),
     ("recurrentgemma-9b", "decode_32k"): (778_903_924, {"2.13": 1.582, "2.11": 1.576}),
     ("olmoe-1b-7b", "decode_32k"): (3_661_678_108, {"2.13": 4.591, "2.11": 4.592})}
 L1_RATIO_RTOL = 0.01
 L4_BATCH, L4_PROMPT = 4, 64
+L5_ARCH = "xlstm-1.3b"
+L5_BATCH, L5_PROMPT = 4, 16
 
 
 def _l1_worker_init():
@@ -2741,10 +2801,99 @@ def launch_sharded(device):
           f"equal to the plain steps' bit for bit")
 
 
+def _l5_steps(cfg, opt, params, cache, batch, nxt, pos):
+    prefill = api.make_prefill_step(cfg, impl="torch")
+    decode = api.make_decode_step(cfg, impl="torch")
+    train = api.make_train_step(cfg, opt, remat=True)
+    lp, cache = prefill(params, cache, {"tokens": batch["tokens"]})
+    ld, _ = decode(params, cache, nxt, pos)
+    new, _, metrics = train(params, opt.init(params), batch)
+    return lp, ld, metrics["loss"], metrics["grad_norm"], new["embed"]
+
+
+def _l5_worker(rank, world, port, out):
+    """One gloo rank of L5: the plain steps, then the sharded ones on the
+    2x2 DeviceMesh; both results to `out`."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed.autoshard import activation_sharding
+    from repro_torch.distributed.sharding import (batch_shardings, cache_shardings,
+                                                  distribute, params_shardings)
+    from repro_torch.launch.mesh import MeshSpec, device_mesh
+    from repro_torch.optim import adamw, constant_schedule
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        spec = MeshSpec(("data", "model"), (2, 2))
+        opt = adamw(constant_schedule(1e-4))
+        cfg = get_config(L5_ARCH).reduced()
+        gen = torch.Generator().manual_seed(0)
+        params = api.init_params(gen, cfg, device="cpu")
+        B, S = L5_BATCH, L5_PROMPT
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32)
+        nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, dtype=torch.int32)
+        pos = torch.full((B, 1), S, dtype=torch.int32)
+        batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1),
+                 "mask": torch.ones((B, S), dtype=torch.float32)}
+        plain = _l5_steps(cfg, opt, params, api.init_cache(cfg, B, S + 1, device="cpu"), batch,
+                          nxt, pos)
+        with device_mesh(spec, device_type="cpu") as mesh:
+            cache = api.init_cache(cfg, B, S + 1, device="cpu")
+            args = [distribute(t, rule(t), mesh) for t, rule in (
+                (params, lambda t: params_shardings(t, spec, cfg)),
+                (cache, lambda t: cache_shardings(t, spec)), (batch, lambda t: batch_shardings(
+                    t, spec)), (nxt, lambda t: batch_shardings(t, spec)),
+                (pos, lambda t: batch_shardings(t, spec)))]
+            with activation_sharding(mesh), implicit_replication():
+                sharded = [t.full_tensor().detach() for t in _l5_steps(cfg, opt, *args)]
+        np.savez(os.path.join(out, f"rank{rank}.npz"),
+                 **{f"plain{i}": t.detach().numpy() for i, t in enumerate(plain)},
+                 **{f"sharded{i}": t.numpy() for i, t in enumerate(sharded)})
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_sharded_train(device):
+    """L5: the sharded prefill, decode and train step (remat, AdamW) of a
+    reduced xlstm-1.3b on a 2x2 DeviceMesh of four gloo ranks, spawned on
+    this machine's CPU under its torch, against the plain steps in each
+    rank: the prefill and decode logits, the loss, the gradient's global
+    norm and the updated embedding within 1e-5 x max(1, max|plain|), as
+    tests/test_torch_collectives.py holds them. No JAX here: port against
+    port."""
+    import socket
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    worst = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_l5_worker, args=(4, port, tmp), nprocs=4, start_method="spawn")
+        for rank in range(4):
+            z = np.load(os.path.join(tmp, f"rank{rank}.npz"))
+            for i, what in enumerate(("prefill logits", "decode logits", "train loss",
+                                      "gradient norm", "updated embedding")):
+                plain, sharded = z[f"plain{i}"], z[f"sharded{i}"]
+                require(plain.shape == sharded.shape, f"launch L5 rank {rank} {what}: shapes "
+                        f"{plain.shape} and {sharded.shape}")
+                tol = 1e-5 * max(1.0, float(np.abs(plain).max()))
+                err = float(np.abs(plain - sharded).max())
+                require(err <= tol, f"launch L5 rank {rank} {what}: sharded off the plain step "
+                        f"by {err:.3e} > {tol:.3e}")
+                worst = max(worst, err / tol)
+    print(f"launch L5: {L5_ARCH} reduced, prefill {L5_BATCH} x {L5_PROMPT}, a decode step and a "
+          f"train step (remat, AdamW) as DTensors on a 2x2 DeviceMesh of four gloo ranks (torch "
+          f"{torch.__version__}, CPU): every output within 1e-5 x max(1, max|plain|) of the "
+          f"plain steps' (worst {worst:.3f} of it), {time.perf_counter() - t0:.1f} s")
+
+
 def launch(device):
     """Phase launch: L1 the dry-run of all 40 pairs with the 16x16
     collective term, L2 seven pairs run at full width on the card, the new
-    kernel shapes held, L3 the all-reduce, L4 the sharded steps."""
+    kernel shapes held, L3 the all-reduce, L4 the sharded steps, L5 the
+    sharded xLSTM train step on four gloo ranks."""
     t_start = time.perf_counter()
     print(f"launch on {card()}")
     l1, l1_s = launch_dryrun_l1(device)
@@ -2753,6 +2902,7 @@ def launch(device):
     errors = launch_kernels(device)
     launch_allreduce(device)
     launch_sharded(device)
+    launch_sharded_train(device)
     phase_s = time.perf_counter() - t_start
     print(f"launch: phase {phase_s:.1f} s (L1 {l1_s:.1f} s)")
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
@@ -2837,7 +2987,47 @@ def sdpa_call(q, k, v, q_pos, kv_pos, window):
         mask &= rel < window
     mask = mask[:, None]
     del rel
-    return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    call = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,  # noqa: E731
+                                                                    attn_mask=mask)
+    call.backend = sdpa_backend(qh, kh, vh, attn_mask=mask)
+    return call
+
+
+def sdpa_same_function_call(q, k, v, q_pos, kv_pos, window):
+    """Where the call's mask equals plain causal attention (query i of Sq =
+    Skv sees keys 0..i) or no mask (every query sees every slot), the SDPA
+    call with `is_causal=True` or without a mask on the same inputs, which
+    computes the same function and may take a faster SDPA backend than a
+    boolean mask allows. Returns (the call, "is_causal=True" or "no mask",
+    the backend SDPA picks for it), or None where the mask is neither."""
+    if window is not None:
+        return None
+    nq, nkv = q.shape[2], k.shape[2]
+    Sq, Skv = q.shape[1], k.shape[1]
+    valid = (kv_pos[:, None, :] >= 0) & (q_pos[:, :, None] - kv_pos[:, None, :] >= 0)
+    if bool(valid.all()):
+        kind, causal = "no mask", False
+    elif Sq == Skv and torch.equal(valid, torch.ones(Sq, Skv, dtype=torch.bool,
+                                                     device=q.device).tril()[None].expand_as(
+                                                         valid)):
+        kind, causal = "is_causal=True", True
+    else:
+        return None
+    del valid
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.transpose(1, 2).repeat_interleave(nq // nkv, dim=1).contiguous()
+    vh = v.transpose(1, 2).repeat_interleave(nq // nkv, dim=1).contiguous()
+    backend = sdpa_backend(qh, kh, vh, is_causal=causal)
+    return (lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                     is_causal=causal)), kind, backend
+
+
+def sdpa_backend(q, k, v, **kw):
+    """The backend scaled_dot_product_attention dispatches these inputs to
+    (its own choice function: FLASH_ATTENTION, CUDNN_ATTENTION,
+    EFFICIENT_ATTENTION or MATH)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
 
 
 def flex_softcap_call(q, k, v, q_pos, kv_pos, window, cap):
@@ -2889,16 +3079,31 @@ def plain_call(args, kw):
                     for i in range(0, q.shape[1], PLAIN_BLOCK)]
 
 
-def _flash_entry(name, args, kw, device, errors, launches, library):
+def _flash_entry(name, args, kw, device, errors, launches, library, same=None):
+    """A flash row. `library` is the library call on the same mask (SDPA
+    with a boolean mask, or flex_attention); `same`, where the mask allows
+    (`sdpa_same_function_call`), SDPA without the boolean mask: both are
+    timed, with the backend each takes, and the faster is the row's
+    library time."""
     q, k, v, q_pos, kv_pos = args
     bound, by = flash_bound(q, k, q_pos, kv_pos, kw.get("window"))
+    call = lambda: ops.flash_attention(*args, **kw)  # noqa: E731
+    library_ms = None if library is None else time_ms(library, device)
+    extra = {}
+    if same is not None:
+        same_call, kind, backend = same
+        same_ms = time_ms(same_call, device)
+        extra = {"library_masked_ms": library_ms, "library_masked_backend": library.backend,
+                 "library_same_function_ms": same_ms, "library_same_function": kind,
+                 "library_same_function_backend": backend}
+        library_ms = min(library_ms, same_ms)
     return {"name": f"flash_attention.{name}", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": launches, "max_abs_err": errors[f"flash_attention.{name}"],
-            "ms": time_ms(lambda: ops.flash_attention(*args, **kw), device),
+            "ms": time_ms(call, device),
             "plain_ms": time_ms(plain_call(args, kw), device),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": None if library is None else time_ms(library, device),
+            "library_ms": library_ms, **extra,
             "shape": f"q {list(q.shape)} kv {list(k.shape)} bf16"
                      + (f" softcap {kw['softcap']:g}" if kw.get("softcap") else "")
                      + (f", plain in blocks of {PLAIN_BLOCK} query rows"
@@ -2954,12 +3159,14 @@ def time_kernels(device, errors, launches, family_launches, launch_launches):
           f"{time_ms(lambda: ops.rglru_scan(la, b, h0), device):.4f} ms "
           f"(the kernels line keeps the first, {scan['ms']:.4f} ms)")
     del la, b, h0
-    # the launch phase's new shapes (no softcap: SDPA times each)
+    # the launch phase's new shapes (no softcap: SDPA times each, with the
+    # boolean mask and, where the mask allows, without it)
     for name in LAUNCH_FLASH:
         args, kw = launch_flash_inputs(name, gen, device)
         entries.append(_flash_entry(name, args, kw, device, errors,
                                     launch_launches[f"flash_attention.{name}"],
-                                    sdpa_call(*args, kw["window"])))
+                                    sdpa_call(*args, kw["window"]),
+                                    sdpa_same_function_call(*args, kw["window"])))
         del args
         torch.cuda.empty_cache()
     entries.append(_scan_entry("prefill_32k", LAUNCH_SCAN, gen, device, errors,
@@ -2970,6 +3177,10 @@ def time_kernels(device, errors, launches, family_launches, launch_launches):
               f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library "
               f"{'-' if e['library_ms'] is None else format(e['library_ms'], '.4f')} ms, "
               f"launches {e['launches']}")
+        if "library_same_function" in e:
+            print(f"  SDPA with the boolean mask {e['library_masked_ms']:.4f} ms "
+                  f"({e['library_masked_backend']}); with {e['library_same_function']} "
+                  f"{e['library_same_function_ms']:.4f} ms ({e['library_same_function_backend']})")
     return entries
 
 

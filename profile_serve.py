@@ -37,7 +37,7 @@ from repro_torch.models import api
 
 TICKS = 8
 # Name fragments of the port's own kernels (src/repro_torch/kernels/csrc).
-PORT_KERNELS = ("flash_", "mean_v_kernel", "chunk_summary", "chunk_carry", "chunk_scan")
+PORT_KERNELS = ("flash_", "prefill_prep_kernel", "chunk_summary", "chunk_carry", "chunk_scan")
 
 
 def device_events(prof):

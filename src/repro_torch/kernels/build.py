@@ -86,6 +86,8 @@ def load() -> ctypes.CDLL:
     lib.repro_flash_attention_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                               i, i, i, i, i, ctypes.c_float, i, p]
     lib.repro_flash_attention_fwd.restype = i
+    lib.repro_flash_decode_blocks_per_sm.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.repro_flash_decode_blocks_per_sm.restype = i
     lib.repro_rglru_scan.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.repro_rglru_scan.restype = i
     return lib

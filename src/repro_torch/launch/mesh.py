@@ -89,7 +89,10 @@ def device_mesh(spec: MeshSpec, device_type: str = "cuda"):
         if dist.get_world_size() != spec.size:
             raise ValueError(f"a {spec.name} mesh needs {spec.size} ranks, the "
                              f"process group has {dist.get_world_size()}")
-        yield init_device_mesh(device_type, spec.axis_sizes, mesh_dim_names=spec.axis_names)
+        mesh = init_device_mesh(device_type, spec.axis_sizes, mesh_dim_names=spec.axis_names)
+        if mesh.ndim > 1:
+            mesh._flatten()
+        yield mesh
     finally:
         if created:
             dist.destroy_process_group()

@@ -265,30 +265,35 @@ def slstm_block(p, x, cfg, state=None):
         state = init_slstm_state(cfg, B, x.dtype, x.device)
     r = p["r"].float()
     pre = xin.float() + p["b"].float()
-    hs, state = _slstm_scan(r, pre, state)
-    hs = layernorm(p["norm"], hs).to(x.dtype)
-    return hs @ p["w_down"], state
+    hs, state = _slstm_scan(r, pre, state, p["norm"])
+    return hs.to(x.dtype) @ p["w_down"], state
 
 
-def _slstm_loop(r, pre, c, n, m, h):
+def _slstm_loop(r, pre, c, n, m, h, scale, bias):
     state = {"c": c, "n": n, "m": m, "h": h}
     hs = []
     for t in range(pre.shape[1]):
         state = _slstm_step(r, state, pre[:, t])
         hs.append(state["h"])
-    return (torch.stack(hs, dim=1),) + tuple(state[key] for key in ("c", "n", "m", "h"))
+    hs = layernorm({"scale": scale, "bias": bias}, torch.stack(hs, dim=1))
+    return (hs,) + tuple(state[key] for key in ("c", "n", "m", "h"))
 
 
-def _slstm_scan(r, pre, state):
-    """The loop over S: (h [B,S,inner], new state). Under an active
-    DeviceMesh on local shards, batch over the data axes; the h->h
-    recurrence mixes each head's width, so the width is whole."""
+def _slstm_scan(r, pre, state, norm):
+    """The loop over S and the layernorm of its outputs: (normed h [B,S,
+    inner], new state). Under an active DeviceMesh on local shards, batch
+    over the data axes; the h->h recurrence mixes each head's width, so the
+    width is whole. The layernorm runs in the same region: outside it, the
+    gradient of its input would meet a pending sum over 'data' split over
+    'model' and a batch split, which torch 2.11's DTensor cannot add."""
     keys = ("c", "n", "m", "h")
     rep = autoshard.placements(r.shape, (None,) * r.ndim)
+    vec = autoshard.placements(norm["scale"].shape, (None,))
     seq = autoshard.placements(pre.shape, ("batch", None, None))
     row = autoshard.placements(state["c"].shape, ("batch", None))
-    out = autoshard.local(_slstm_loop, (rep, seq) + (row,) * 4, (seq,) + (row,) * 4)(
-        r, pre, *(state[key] for key in keys))
+    out = autoshard.local(_slstm_loop, (rep, seq) + (row,) * 4 + (vec, vec),
+                          (seq,) + (row,) * 4)(
+        r, pre, *(state[key] for key in keys), norm["scale"], norm["bias"])
     return out[0], dict(zip(keys, out[1:]))
 
 

@@ -14,8 +14,11 @@ from test_kernels import ATTN_CASES
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.rglru_scan import rglru_scan as pallas_scan
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (SPLIT_KEYS, TARGET_BLOCKS,
-                                                 decode_rows, decode_splits)
+from repro_torch.kernels.flash_attention import (DEAD, FULL, MAX_SPLITS, PARTIAL,
+                                                 RESIDENT_DECODE_BLOCKS, SPLIT_KEYS,
+                                                 decode_rows, decode_split_range,
+                                                 decode_splits, prefill_tile_classes)
+from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.kernels.rglru_scan import MIN_CHUNK, TARGET_LANES, scan_chunks
 
 
@@ -180,20 +183,120 @@ def test_scan_chunks_cover_steps(B, S, W):
     (4, 1, 16, 1, 2048, torch.bfloat16), (4, 1, 16, 1, 2000, torch.float32),
     (1, 1, 16, 1, 2048, torch.bfloat16), (2, 33, 6, 3, 65, torch.float32),
     (2, 50, 8, 2, 130, torch.bfloat16), (4, 1, 4, 4, 130, torch.bfloat16),
-    (64, 1, 32, 8, 32768, torch.bfloat16), (1, 1, 8, 8, 1, torch.float32)])
+    (64, 1, 32, 8, 32768, torch.bfloat16), (1, 1, 8, 8, 1, torch.float32),
+    (8, 1, 16, 16, 32768, torch.bfloat16), (8, 1, 16, 16, 32767, torch.bfloat16),
+    (4, 1, 16, 16, 1000, torch.bfloat16), (128, 1, 16, 1, 2048, torch.bfloat16),
+    (1, 1, 4, 4, 1_000_000, torch.bfloat16)])
 def test_decode_splits_cover_keys(B, Sq, nq, nkv, Skv, dtype):
-    """Split i covers keys [i * keys, min(Skv, (i + 1) * keys)): the splits
-    cover [0, Skv) once, none is empty, each is a whole number of
-    SPLIT_KEYS tiles, and the grid stays near one block per SM unless the
-    (batch, kv head, row tile) blocks alone exceed it."""
-    keys, splits = decode_splits(B, Sq, nq, nkv, Skv, dtype)
-    assert keys % SPLIT_KEYS == 0
-    assert keys * (splits - 1) < Skv <= keys * splits
+    """The splits cover [0, Skv) once, none is empty, each is dealt whole
+    SPLIT_KEYS tiles and their tile counts differ by at most one (only the
+    last is cut, by the ragged end of Skv), there are at most MAX_SPLITS (the
+    combine kernel's kMaxSplits), and as many as keep the grid of (batch, kv
+    head, row tile) blocks x splits within the blocks the card holds at
+    once, unless those blocks alone exceed it. The L2 decode shape (batch 8,
+    16 kv heads over 32768 slots) fills at least 0.95 of them: the hd-64
+    block holds 128 KB of K/V in flight, one an SM (PERF.md, PR 21)."""
+    splits = decode_splits(B, Sq, nq, nkv, Skv, dtype)
+    assert 1 <= splits <= MAX_SPLITS
+    ranges = [decode_split_range(i, splits, Skv) for i in range(splits)]
     covered = np.zeros(Skv, dtype=int)
-    for i in range(splits):
-        covered[i * keys:min(Skv, (i + 1) * keys)] += 1
+    for k0, k1 in ranges:
+        assert k0 < k1 and k0 % SPLIT_KEYS == 0
+        covered[k0:k1] += 1
     assert np.all(covered == 1)
-    base = B * nkv * -(-(nq // nkv * Sq) // decode_rows(dtype))
-    assert base * splits <= max(TARGET_BLOCKS, base) + base
-    if keys > SPLIT_KEYS:
-        assert base * -(-Skv // (keys - SPLIT_KEYS)) > TARGET_BLOCKS
+    assert all(k1 % SPLIT_KEYS == 0 for _, k1 in ranges[:-1]) and ranges[-1][1] == Skv
+    tiles = [-(-k1 // SPLIT_KEYS) - k0 // SPLIT_KEYS for k0, k1 in ranges]
+    assert max(tiles) - min(tiles) <= 1
+    units = B * nkv * -(-(nq // nkv * Sq) // decode_rows(dtype))
+    assert units * splits <= max(RESIDENT_DECODE_BLOCKS, units)
+    assert (splits == min(MAX_SPLITS, -(-Skv // SPLIT_KEYS))
+            or units * (splits + 1) > RESIDENT_DECODE_BLOCKS)
+    if (B, Sq, nq, nkv, Skv) == (8, 1, 16, 16, 32768):
+        assert units * splits >= 0.95 * RESIDENT_DECODE_BLOCKS
+
+
+def _mask_from_ref(q_pos, kv_pos, causal, window):
+    """[B, Sq, Skv] bool: which (query, key) pairs flash_attention_ref lets
+    through, read from its output: zero q and k (every valid score 0), V the
+    identity over the slots plus one always-empty slot (the head dim is the
+    slot count), so a row's output is its softmax weights; a row with no
+    valid slot spreads over the extra slot too, and counts as all masked."""
+    B, Sq = q_pos.shape
+    Skv = kv_pos.shape[1]
+    kv = torch.cat([kv_pos, torch.full((B, 1), -1, dtype=torch.int32)], 1)
+    eye = torch.eye(Skv + 1).expand(B, Skv + 1, Skv + 1)[:, :, None]
+    p = flash_attention_ref(torch.zeros(B, Sq, 1, Skv + 1), torch.zeros_like(eye), eye,
+                            q_pos, kv, causal=causal, window=window)[:, :, 0]
+    return (p[..., :Skv] > 0) & (p[..., Skv:] == 0)
+
+
+def _positions(kind, rng):
+    """(q_pos, kv_pos, causal, window) of one seeded case."""
+    if kind == "prefix":
+        S = int(rng.integers(300, 700))
+        pos = np.arange(S, dtype=np.int32)[None].repeat(2, 0)
+        return pos, pos.copy(), True, None
+    if kind == "ring":
+        cap, n = 384, int(rng.integers(800, 1200))
+        q = np.arange(n - 500, n, dtype=np.int32)[None]
+        kv = np.full((1, cap), -1, dtype=np.int32)
+        p = np.arange(n - cap, n)
+        kv[0, p % cap] = p
+        return q, kv, True, int(rng.integers(100, 300))
+    if kind == "windowed":
+        S = int(rng.integers(500, 900))
+        pos = np.arange(S, dtype=np.int32)[None]
+        return pos, pos.copy(), True, int(rng.integers(300, 600))   # room for FULL tiles
+    if kind == "empty slots":
+        S = int(rng.integers(500, 800))
+        q = np.arange(S, dtype=np.int32)[None].repeat(2, 0)
+        kv = q.copy()
+        kv[rng.random(kv.shape) < 0.05] = -1
+        kv[1, 256:384] = -1
+        return q, kv, True, None
+    S = 1500                                            # whisper's frames, non-causal
+    q = np.arange(S, dtype=np.int32)[None].repeat(2, 0)
+    kv = q.copy()
+    kv[1, 1400:] = -1
+    kv[0, 200:260:3] = -1
+    return q, kv, False, None
+
+
+@pytest.mark.parametrize("kind", ["prefix", "ring", "windowed", "empty slots", "non-causal"])
+def test_prefill_tile_classes_hold_the_mask(kind):
+    """The plain twin of the hd-64 prefill's tile classes against
+    flash_attention_ref's mask on seeded positions: in a FULL tile every
+    (row, key) pair of the block is valid, in a DEAD tile none is. On a
+    causal prefix prompt every tile below a block's diagonal is FULL and
+    the diagonal tile PARTIAL, so the mask is applied to one tile in a
+    block's row."""
+    rng = np.random.default_rng(["prefix", "ring", "windowed", "empty slots",
+                                 "non-causal"].index(kind) + 31)
+    q_pos, kv_pos, causal, window = _positions(kind, rng)
+    q_pos, kv_pos = torch.from_numpy(q_pos), torch.from_numpy(kv_pos)
+    classes = prefill_tile_classes(q_pos, kv_pos, causal=causal, window=window)
+    valid = _mask_from_ref(q_pos, kv_pos, causal, window)
+    bq, bk = 128, 128
+    seen = set()
+    for b in range(classes.shape[0]):
+        for i in range(classes.shape[1]):
+            for j in range(classes.shape[2]):
+                block = valid[b, i * bq:(i + 1) * bq, j * bk:(j + 1) * bk]
+                c = int(classes[b, i, j])
+                seen.add(c)
+                if c == FULL:
+                    assert block.shape == (bq, bk) and bool(block.all()), (b, i, j)
+                elif c == DEAD:
+                    assert not bool(block.any()), (b, i, j)
+    assert PARTIAL in seen
+    if kind == "prefix":
+        n_q = classes.shape[1]
+        want = torch.full(classes.shape[1:], DEAD)
+        for i in range(n_q):
+            want[i, :i] = FULL
+            want[i, i] = PARTIAL
+        if q_pos.shape[1] % bq:
+            want[n_q - 1, :n_q] = PARTIAL               # the ragged last block
+        assert torch.equal(classes[0], want) and torch.equal(classes[1], want)
+    if kind == "windowed":
+        assert FULL in seen and DEAD in seen
