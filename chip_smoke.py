@@ -106,7 +106,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import H100, GenFVConfig, StreamConfig  # noqa: E402
@@ -135,6 +135,7 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
+from port_bench.recorder import Recorder  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.tree import FlatSpec, tree_leaves, tree_map  # noqa: E402
 
@@ -700,42 +701,16 @@ PLAN_ATOL = 1e-3
 BUCKET_TOL = 1e-4
 
 
-class RoundRecorder:
-    """A tracer for GenFVRunner (the `obs` it takes, which only opens spans):
-    times each span with the device synchronized at both edges."""
-    enabled = False
-
-    def __init__(self, device):
-        self.device = device
-        self.ms = {}
-
-    def span(self, name, key=None, **tags):
-        return _RoundSpan(self, name)
-
-
-class _RoundSpan:
-    def __init__(self, rec, name):
-        self.rec, self.name, self.sync = rec, name, None
-
-    def __enter__(self):
-        sync(self.rec.device)
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        sync(self.rec.device)
-        self.rec.ms.setdefault(self.name, []).append(1e3 * (time.perf_counter() - self.t0))
-        return False
-
-
 def _flat(params):
     return FlatSpec(params).flatten(params)
 
 
 def genfv_full_width(device):
     """Three rounds at full width through begin_round / plan / finish_round,
-    each stage timed; returns the runner and a record per round."""
-    rec = RoundRecorder(device)
+    each span timed with the device synchronized at both edges (a span
+    opened more than once in a round, as the planner's are, sums); returns
+    the runner and a record per round."""
+    rec = Recorder(device, timed=True)
     t0 = time.perf_counter()
     runner = GenFVRunner(RunConfig(**GENFV_FULL), obs=rec, device=device)
     sync(device)
@@ -752,18 +727,24 @@ def genfv_full_width(device):
     for t in range(GENFV_FULL["rounds"]):
         b_prev = runner.b_prev
         sync(device)
+        rec.ms = {}
         t0 = time.perf_counter()
         pending = runner.begin_round(t)
         plan = runner.plan(pending)
         log = runner.finish_round(pending, plan)
         sync(device)
-        ms = {k: v[-1] for k, v in rec.ms.items()}
+        ms = rec.ms
         r = {"round": t, "selected": log.selected,
              "bucket": bucket_size(log.selected) if log.selected else 0,
              "b_gen": log.b_gen, "t_bar": log.t_bar, "bcd_iters": log.bcd_iters,
              "loss": log.loss, "accuracy": log.accuracy, "planner_syncs": plan.syncs,
-             "plan_ms": ms["round/plan"], "generate_ms": ms["round/generate"],
-             "fleet_step_ms": ms["round/aggregate"], "eval_ms": ms["round/eval"],
+             "planner_steps": plan.steps, "plan_ms": ms["round/plan"],
+             "plan_bandwidth_ms": ms.get("round/plan/bandwidth", 0.0),
+             "plan_power_ms": ms.get("round/plan/power", 0.0),
+             "generate_ms": ms["round/generate"], "aug_train_ms": ms.get("round/generate/train", 0.0),
+             "fleet_step_ms": ms["round/aggregate"],
+             "fleet_upload_ms": ms.get("round/aggregate/upload", 0.0),
+             "fleet_sgd_ms": ms.get("round/aggregate/sgd", 0.0), "eval_ms": ms["round/eval"],
              "round_ms": 1e3 * (time.perf_counter() - t0)}
         r["fleet_images_per_s"] = (log.selected * cfg.local_steps * cfg.batch_size
                                    / (r["fleet_step_ms"] / 1e3))
@@ -771,9 +752,12 @@ def genfv_full_width(device):
         print(f"genfv round {t}: selected {r['selected']}, bucket {r['bucket']}, "
               f"b_gen {r['b_gen']}, t_bar {r['t_bar']:.4f} s, bcd_iters {r['bcd_iters']}, "
               f"loss {r['loss']:.4f}, accuracy {r['accuracy']:.4f}; ms: plan "
-              f"{r['plan_ms']:.2f} ({r['planner_syncs']} syncs), generate + omega_a "
-              f"{r['generate_ms']:.2f}, fleet step {r['fleet_step_ms']:.2f} "
-              f"({r['fleet_images_per_s']:.0f} images/s of local SGD), eval "
+              f"{r['plan_ms']:.2f} ({r['planner_syncs']} syncs; bandwidth "
+              f"{r['plan_bandwidth_ms']:.2f}, power {r['plan_power_ms']:.2f}; steps "
+              f"{r['planner_steps']}), generate + omega_a {r['generate_ms']:.2f} "
+              f"(omega_a {r['aug_train_ms']:.2f}), fleet step {r['fleet_step_ms']:.2f} "
+              f"(upload {r['fleet_upload_ms']:.2f}, SGD {r['fleet_sgd_ms']:.2f}; "
+              f"{r['fleet_images_per_s']:.0f} images/s of local SGD), eval "
               f"{r['eval_ms']:.2f}, round {r['round_ms']:.2f}")
         require(math.isfinite(r["loss"]) and 0.0 <= r["accuracy"] <= 1.0,
                 f"genfv round {t}: loss {r['loss']}, accuracy {r['accuracy']}")

@@ -44,6 +44,7 @@ from repro_torch.core.emd import data_weights  # noqa: E402
 from repro_torch.core.two_scale import plan_round  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig  # noqa: E402
 from repro_torch.obs import NULL_OBS  # noqa: E402
+from port_bench.recorder import busy_ms  # noqa: E402
 
 STAGES = ("round/fleet", "round/select", "round/plan", "round/generate",
           "round/local_sgd", "round/aggregate", "round/world_step", "round/eval")
@@ -104,23 +105,6 @@ def fleet_step_ab(runner, device, runs=4):
           f"{[round(x, 1) for x in ms[True]]} ms (median {statistics.median(ms[True]):.1f})")
 
 
-def busy_ms(events, lo=float("-inf"), hi=float("inf")):
-    """Union of the events' intervals, clipped to [lo, hi], in ms."""
-    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
-                   for e in events if e.time_range.end > lo and e.time_range.start < hi)
-    total, start, end = 0.0, None, None
-    for s, e in spans:
-        if end is None or s > end:
-            if end is not None:
-                total += end - start
-            start, end = s, e
-        else:
-            end = max(end, e)
-    if end is not None:
-        total += end - start
-    return total / 1e3
-
-
 def profile_round(runner, device, t):
     runner.obs = ProfiledObs(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -135,7 +119,8 @@ def profile_round(runner, device, t):
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     kernels = [e for e in events if e.device_type == cuda and e.name not in STAGES]
-    busy = busy_ms(kernels)
+    intervals = [(k.time_range.start, k.time_range.end) for k in kernels]
+    busy = busy_ms(intervals)
     print(f"round {t} under the profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall:.3f}, {len(kernels)} kernels; selected "
           f"{log.selected}, bucket {chip_smoke.bucket_size(log.selected)}, planner syncs "
@@ -146,7 +131,7 @@ def profile_round(runner, device, t):
             lo, hi = r.time_range.start, r.time_range.end
             n = sum(1 for k in kernels if lo <= k.time_range.start < hi)
             print(f"  {name}: wall {(hi - lo) / 1e3:.2f} ms, device busy "
-                  f"{busy_ms(kernels, lo, hi):.2f} ms, {n} kernels")
+                  f"{busy_ms(intervals, lo, hi):.2f} ms, {n} kernels")
     ranked = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0
                      and not e.key.startswith(("aten::", "round/", "autograd::"))),
                     key=lambda e: -e.self_device_time_total)
@@ -156,7 +141,7 @@ def profile_round(runner, device, t):
     return pending
 
 
-def _solve_bandwidth_all_steps(c, B, D, t_cp, e_cp, valid, n_val, done, read):
+def _solve_bandwidth_all_steps(c, B, D, t_cp, e_cp, valid, n_val, done, read, steps):
     """planner._solve_bandwidth without the one-step projection and its
     redo: every bandwidth iteration runs all Kp projection steps."""
     l0 = torch.where(valid, c.M / n_val[:, None], 0.0)
@@ -167,6 +152,7 @@ def _solve_bandwidth_all_steps(c, B, D, t_cp, e_cp, valid, n_val, done, read):
         for _ in range(planner.SYNC_EVERY):
             st, _ = planner._bandwidth_step(c, st, B, D, t_cp, e_cp, valid, n_val,
                                             valid.shape[-1])
+        steps["bandwidth_redo"] += planner.SYNC_EVERY
         if read(st[6].all()):
             return st[3]
 

@@ -26,6 +26,13 @@ guarded step (the projection ends in one step unless an entry falls below
 the floor); if any lane needed more, the chunk is stepped again from its
 start with all `Kp` projection steps the JAX loop allows.
 
+The host knows how many loop bodies it issues: `RoundPlan.steps` counts
+them by part (single-projection bandwidth steps, the redo's
+full-projection steps, SCA power steps), and with a tracer the BCD's
+subproblems open spans of their own (`round/plan/bandwidth`,
+`round/plan/power`, `round/plan/generation`, `round/plan/ledger`). Neither
+reads the device nor launches anything.
+
 Sums over the fleet axis are pairwise over the padded power-of-two axis
 (`_tree_sum`), written as elementwise adds: their order does not depend on
 the batch, the device or the bucket (padding adds exact zeros first).
@@ -48,6 +55,7 @@ from repro_torch.core.gpu_model import CONSTS, RSU_F_CORE, RSU_SPEEDUP
 from repro_torch.core.mobility import Vehicle, rsu_distances
 from repro_torch.core.selection import SelectionResult, select
 from repro_torch.models.api import resolve_device
+from repro_torch.obs import NULL_OBS
 
 LN2 = float(np.log(2.0))
 
@@ -93,6 +101,10 @@ class RoundPlan:
     selection: SelectionResult | None = None
     # host reads of the device planner's done flags and result (0 for numpy)
     syncs: int = 0
+    # loop bodies the device planner issued, by part: "bandwidth" (one-step
+    # projections), "bandwidth_redo" (all-Kp projections), "power" (SCA);
+    # empty for numpy
+    steps: dict = field(default_factory=dict)
 
 
 def empty_plan(alpha: np.ndarray,
@@ -249,8 +261,9 @@ def _bandwidth_step(c: PlannerConsts, st, B, D, t_cp, e_cp, valid, n_val,
 
 
 def _solve_bandwidth(c: PlannerConsts, B, D, t_cp, e_cp, valid, n_val,
-                     done, read):
-    """Algorithm 1 for the lanes not yet `done`; `read` fetches a flag."""
+                     done, read, steps):
+    """Algorithm 1 for the lanes not yet `done`; `read` fetches a flag, and
+    `steps` counts the steps issued."""
     l0 = torch.where(valid, c.M / n_val[:, None], 0.0)
     ones = torch.ones_like(n_val)
     st = (torch.ones_like(l0), ones, ones, l0, l0,
@@ -262,12 +275,14 @@ def _solve_bandwidth(c: PlannerConsts, B, D, t_cp, e_cp, valid, n_val,
         for _ in range(SYNC_EVERY):
             st, s = _bandwidth_step(c, st, B, D, t_cp, e_cp, valid, n_val, 1)
             short = short | s
+        steps["bandwidth"] += SYNC_EVERY
         all_done, redo = read(torch.stack([st[6].all(), short.any()]))
         if redo:
             st = start
             for _ in range(SYNC_EVERY):
                 st, _ = _bandwidth_step(c, st, B, D, t_cp, e_cp, valid,
                                         n_val, kp)
+            steps["bandwidth_redo"] += SYNC_EVERY
             all_done = read(st[6].all())
         if all_done:
             return st[3]
@@ -291,7 +306,7 @@ def _power_step(c: PlannerConsts, st, a, lw_s, bp_s, e_cp, phi_max, valid):
 
 
 def _solve_power(c: PlannerConsts, l_w, b_prime, e_cp, phi_max, valid, done,
-                 read):
+                 read, steps):
     """Algorithm 2 for the lanes not yet `done`."""
     lw_s = torch.where(valid, l_w, 1.0)
     bp_s = torch.where(valid, b_prime, 1.0)
@@ -301,6 +316,7 @@ def _solve_power(c: PlannerConsts, l_w, b_prime, e_cp, phi_max, valid, done,
     while True:
         for _ in range(SYNC_EVERY):
             st = _power_step(c, st, a, lw_s, bp_s, e_cp, phi_max, valid)
+        steps["power"] += SYNC_EVERY
         if read(st[2].all()):
             return st[0]
 
@@ -320,11 +336,14 @@ def _optimal_generation(c: PlannerConsts, t_bar, b_prev):
 
 
 def _bcd_kernel(c: PlannerConsts, t_cp, e_cp, b_prime, phi_max, valid,
-                b_prev, max_bcd: int):
-    """Algorithm 3's small computation scale for F padded fleets [F, Kp].
-    Returns the ledger as one float64 host array [F, 4 Kp + 4 + H] (see
-    `_unpack`) and the number of host reads."""
+                b_prev, ks: Sequence[int], max_bcd: int, obs=NULL_OBS):
+    """Algorithm 3's small computation scale for F padded fleets [F, Kp]
+    whose first `ks[f]` slots are valid. Returns each fleet's ledger (see
+    `_unpack`), the number of host reads and the loop bodies issued by
+    part. Each BCD iteration opens a span per subproblem on `obs`, and the
+    final read of the ledger one more."""
     reads = [0]
+    steps = {"bandwidth": 0, "bandwidth_redo": 0, "power": 0}
 
     def read(t):
         reads[0] += 1
@@ -345,45 +364,57 @@ def _bcd_kernel(c: PlannerConsts, t_cp, e_cp, b_prime, phi_max, valid,
     hist = torch.zeros((valid.shape[0], max(max_bcd, 1)), dtype=t_cp.dtype,
                        device=t_cp.device)
     slot = torch.arange(hist.shape[1], device=t_cp.device)[None]
+    bcd_iter = 0
     while max_bcd > 0:
+        tags = {"bcd_iter": bcd_iter} if obs.enabled else {}
+        bcd_iter += 1
         # SUBP2: bandwidth given phi, b
-        rate1 = c.W * torch.log2(1.0 + bp_s * phi)
-        B = torch.where(valid, c.model_bits / rate1, 0.0)
-        D = torch.where(valid, phi * B, 0.0)
-        l_n = _solve_bandwidth(c, B, D, t_cp, e_cp, valid, n_val, done, read)
+        with obs.span("round/plan/bandwidth", **tags):
+            rate1 = c.W * torch.log2(1.0 + bp_s * phi)
+            B = torch.where(valid, c.model_bits / rate1, 0.0)
+            D = torch.where(valid, phi * B, 0.0)
+            l_n = _solve_bandwidth(c, B, D, t_cp, e_cp, valid, n_val, done,
+                                   read, steps)
         # SUBP3: power given l, b
-        phi_n = _solve_power(c, l_n * c.W, b_prime, e_cp, phi_max, valid,
-                             done, read)
+        with obs.span("round/plan/power", **tags):
+            phi_n = _solve_power(c, l_n * c.W, b_prime, e_cp, phi_max, valid,
+                                 done, read, steps)
         # SUBP4: generation given l, phi (closed form, eq. 48)
-        t_mu = t_mu_of(l_n, phi_n)
-        t_bar = torch.where(valid, t_cp + t_mu, -torch.inf).amax(-1)
-        b_n = _optimal_generation(c, t_bar, b)
-        hist_n = torch.where(slot == it[:, None], t_bar[:, None], hist)
-        conv = ((torch.where(valid, (l_n - l).abs(), 0.0).amax(-1)
-                 < c.bcd_eps)
-                & (torch.where(valid, (phi_n - phi).abs(), 0.0).amax(-1)
-                   < c.bcd_eps)
-                & ((b_n - b).abs() < 1))
-        it_n = it + 1
-        d2 = done[:, None]
-        l, phi = torch.where(d2, l, l_n), torch.where(d2, phi, phi_n)
-        b, it = torch.where(done, b, b_n), torch.where(done, it, it_n)
-        hist = torch.where(d2, hist, hist_n)
-        done = done | conv | (it_n >= max_bcd)
-        if read(done.all()):
+        with obs.span("round/plan/generation", **tags):
+            t_mu = t_mu_of(l_n, phi_n)
+            t_bar = torch.where(valid, t_cp + t_mu, -torch.inf).amax(-1)
+            b_n = _optimal_generation(c, t_bar, b)
+            hist_n = torch.where(slot == it[:, None], t_bar[:, None], hist)
+            conv = ((torch.where(valid, (l_n - l).abs(), 0.0).amax(-1)
+                     < c.bcd_eps)
+                    & (torch.where(valid, (phi_n - phi).abs(), 0.0).amax(-1)
+                       < c.bcd_eps)
+                    & ((b_n - b).abs() < 1))
+            it_n = it + 1
+            d2 = done[:, None]
+            l, phi = torch.where(d2, l, l_n), torch.where(d2, phi, phi_n)
+            b, it = torch.where(done, b, b_n), torch.where(done, it, it_n)
+            hist = torch.where(d2, hist, hist_n)
+            done = done | conv | (it_n >= max_bcd)
+            stop = read(done.all())
+        if stop:
             break
 
     # final ledger (mirrors the tail of the numpy plan_round)
-    t_mu = torch.where(valid, t_mu_of(l, phi), 0.0)
-    e_mu = phi * t_mu
-    t_bar = torch.where(valid, t_cp + t_mu, -torch.inf).amax(-1)
-    bt = torch.clamp(b // c.gen_batch, min=1).to(t_cp.dtype)
-    t_rsu = b.to(t_cp.dtype) * c.t_per_image + _rsu_train_time(c, bt)
-    col = lambda x: x.to(t_cp.dtype)[:, None]                 # noqa: E731
-    out = torch.cat([l, phi, t_mu, e_mu, col(t_bar), col(t_rsu), col(b),
-                     col(it), hist], dim=1)
-    reads[0] += 1
-    return out.cpu().numpy(), reads[0]
+    with obs.span("round/plan/ledger"):
+        t_mu = torch.where(valid, t_mu_of(l, phi), 0.0)
+        e_mu = phi * t_mu
+        t_bar = torch.where(valid, t_cp + t_mu, -torch.inf).amax(-1)
+        bt = torch.clamp(b // c.gen_batch, min=1).to(t_cp.dtype)
+        t_rsu = b.to(t_cp.dtype) * c.t_per_image + _rsu_train_time(c, bt)
+        col = lambda x: x.to(t_cp.dtype)[:, None]             # noqa: E731
+        out = torch.cat([l, phi, t_mu, e_mu, col(t_bar), col(t_rsu), col(b),
+                         col(it), hist], dim=1)
+        reads[0] += 1
+        out = out.cpu().numpy()
+        kp = valid.shape[-1]
+        rows = [_unpack(out[i], k, kp, max_bcd) for i, k in enumerate(ks)]
+    return rows, reads[0], steps
 
 
 def _unpack(row: np.ndarray, k: int, kp: int, max_bcd: int) -> dict:
@@ -405,7 +436,7 @@ def _pad(x: np.ndarray, kp: int, fill: float = 0.0) -> np.ndarray:
 
 
 def _run(cfg, model_bits, svc, eps, max_bcd, consts_list, ks, kp, b_prevs,
-         device):
+         device, obs):
     """Pad, upload, run the kernel over the fleets and unpack each row."""
     if kp & (kp - 1):
         raise ValueError(f"bucket {kp} is not a power of two")
@@ -419,31 +450,31 @@ def _run(cfg, model_bits, svc, eps, max_bcd, consts_list, ks, kp, b_prevs,
         rows = np.stack([_pad(get(s), kp, fill) for s in consts_list])
         return torch.from_numpy(rows).to(device)
 
-    out, reads = _bcd_kernel(
+    return _bcd_kernel(
         c, stack(lambda s: s.t_cp), stack(lambda s: s.e_cp),
         stack(lambda s: s.b_prime), stack(lambda s: s.phi_max, cfg.phi_min),
         torch.from_numpy(valid).to(device),
         torch.tensor(list(b_prevs), dtype=torch.int64, device=device),
-        int(max_bcd))
-    rows = [_unpack(out[i], k, kp, int(max_bcd)) for i, k in enumerate(ks)]
-    return rows, reads
+        ks, int(max_bcd), obs)
 
 
 def plan_selected_torch(cfg: GenFVConfig, model_bits: float,
                         consts: SelectedConsts, b_prev: int,
                         svc: DiffusionService, eps: float, max_bcd: int,
-                        bucket: int | None = None, device="cuda") -> dict:
+                        bucket: int | None = None, device="cuda",
+                        obs=NULL_OBS) -> dict:
     """Run the BCD for one already-selected fleet on `device`. Returns the
-    ledger arrays (trimmed to K) for RoundPlan assembly and the number of
-    host reads under "syncs". `bucket` overrides the power-of-two padding
-    (tests use it to show the padding is neutral)."""
+    ledger arrays (trimmed to K) for RoundPlan assembly, the number of
+    host reads under "syncs" and the loop bodies issued under "steps".
+    `bucket` overrides the power-of-two padding (tests use it to show the
+    padding is neutral); `obs` takes the BCD's spans."""
     k = len(consts.t_cp)
     kp = bucket_size(k) if bucket is None else int(bucket)
     if kp < k:
         raise ValueError(f"bucket {kp} smaller than fleet {k}")
-    rows, reads = _run(cfg, model_bits, svc, eps, max_bcd, [consts], [k], kp,
-                       [int(b_prev)], device)
-    return dict(rows[0], syncs=reads)
+    rows, reads, steps = _run(cfg, model_bits, svc, eps, max_bcd, [consts],
+                              [k], kp, [int(b_prev)], device, obs)
+    return dict(rows[0], syncs=reads, steps=steps)
 
 
 def plan_rounds_batched(cfg: GenFVConfig, fleets: Sequence[Sequence[Vehicle]],
@@ -454,14 +485,15 @@ def plan_rounds_batched(cfg: GenFVConfig, fleets: Sequence[Sequence[Vehicle]],
                         svc: DiffusionService | None = None,
                         eps: float | None = None,
                         max_bcd: int | None = None,
-                        device="cuda") -> List[RoundPlan]:
+                        device="cuda", obs=NULL_OBS) -> List[RoundPlan]:
     """Plan many independent fleets as the rows of one batch on `device`.
 
     Fleets may differ in size and selected-set size; all selected sets are
     padded to a common power-of-two bucket. Each plan is bitwise the plan
     `plan_round(..., planner="torch")` makes for that fleet alone (the
-    done-guarded loops freeze converged rows). `syncs` of each plan is the
-    batch's count of host reads.
+    done-guarded loops freeze converged rows). `syncs` and `steps` of each
+    plan are the batch's counts of host reads and loop bodies; `obs` takes
+    the batch's BCD spans.
     """
     svc = svc or DiffusionService(steps=cfg.diffusion_steps)
     eps = cfg.bcd_eps if eps is None else eps
@@ -494,10 +526,10 @@ def plan_rounds_batched(cfg: GenFVConfig, fleets: Sequence[Sequence[Vehicle]],
         return plans
 
     kp = bucket_size(max(len(idxs[f]) for f in live))
-    rows, reads = _run(cfg, model_bits, svc, eps, max_bcd,
-                       [consts[f] for f in live],
-                       [len(idxs[f]) for f in live], kp,
-                       [b_prevs[f] for f in live], device)
+    rows, reads, steps = _run(cfg, model_bits, svc, eps, max_bcd,
+                              [consts[f] for f in live],
+                              [len(idxs[f]) for f in live], kp,
+                              [b_prevs[f] for f in live], device, obs)
     for r, f in zip(rows, live):
         s = consts[f]
         plans[f] = RoundPlan(
@@ -505,5 +537,6 @@ def plan_rounds_batched(cfg: GenFVConfig, fleets: Sequence[Sequence[Vehicle]],
             b_gen=r["b_gen"], t_cp=s.t_cp, t_mu=r["t_mu"],
             t_bar=r["t_bar"], e_total=s.e_cp + r["e_mu"], t_rsu=r["t_rsu"],
             bcd_iters=r["bcd_iters"], converged=r["converged"],
-            history=r["history"], selection=sels[f], syncs=reads)
+            history=r["history"], selection=sels[f], syncs=reads,
+            steps=dict(steps))
     return plans

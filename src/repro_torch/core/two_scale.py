@@ -34,6 +34,7 @@ from repro_torch.core.planner import (RoundPlan, empty_plan,
                                       plan_rounds_batched,
                                       plan_selected_torch, selected_consts)
 from repro_torch.core.selection import select
+from repro_torch.obs import NULL_OBS
 
 __all__ = ["RoundPlan", "plan_round", "plan_rounds_batched"]
 
@@ -43,9 +44,11 @@ def plan_round(cfg: GenFVConfig, fleet: List[Vehicle], model_bits: float,
                svc: DiffusionService | None = None,
                eps: float | None = None, max_bcd: int | None = None,
                alpha_override: np.ndarray | None = None,
-               planner: str = "torch", device="cuda") -> RoundPlan:
+               planner: str = "torch", device="cuda",
+               obs=NULL_OBS) -> RoundPlan:
     """SUBP1 selection (unless `alpha_override` gives it) and the SUBP2-4
-    BCD. `device` is where the torch planner runs; numpy ignores it."""
+    BCD. `device` is where the torch planner runs and `obs` takes its
+    spans; numpy, the reference copy of the paper's math, ignores both."""
     svc = svc or DiffusionService(steps=cfg.diffusion_steps)
     eps = cfg.bcd_eps if eps is None else eps
     max_bcd = cfg.bcd_max_iter if max_bcd is None else max_bcd
@@ -72,13 +75,13 @@ def plan_round(cfg: GenFVConfig, fleet: List[Vehicle], model_bits: float,
     # ---- Small computation scale: BCD over SUBP2/3/4 ----------------------
     if planner == "torch":
         r = plan_selected_torch(cfg, model_bits, c, b_prev, svc, eps, max_bcd,
-                                device=device)
+                                device=device, obs=obs)
         return RoundPlan(alpha=alpha, selected=idx, l=r["l"], phi=r["phi"],
                          b_gen=r["b_gen"], t_cp=c.t_cp, t_mu=r["t_mu"],
                          t_bar=r["t_bar"], e_total=c.e_cp + r["e_mu"],
                          t_rsu=r["t_rsu"], bcd_iters=r["bcd_iters"],
                          converged=r["converged"], history=r["history"],
-                         selection=sel, syncs=r["syncs"])
+                         selection=sel, syncs=r["syncs"], steps=r["steps"])
 
     K = len(idx)
     t_cp, e_cp, b_prime, phi_max = c.t_cp, c.e_cp, c.b_prime, c.phi_max

@@ -239,7 +239,7 @@ class Sweep:
                         b_prevs=[runners[i].b_prev for i in idxs],
                         svc=svc,
                         alpha_overrides=[pending[i].alpha for i in idxs],
-                        device=self.device)
+                        device=self.device, obs=self.obs)
                 dispatches += 1
                 batched_fleets += len(idxs)
                 largest_batch = max(largest_batch, len(idxs))

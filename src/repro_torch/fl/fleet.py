@@ -34,6 +34,7 @@ from repro_torch.core.emd import aggregate_stacked_guarded, kappas
 from repro_torch.core.planner import bucket_size
 from repro_torch.fl.client import (images_to_device, labels_to_device,
                                    sgd_steps_flat)
+from repro_torch.obs import NULL_OBS
 from repro_torch.tree import FlatSpec, tree_leaves
 
 
@@ -59,7 +60,7 @@ class FleetEngine:
     def run(self, global_params, imgs_list: List, labels_list: List,
             rhos: Sequence[float], emd_bar: float = 0.0, aug_params=None,
             prox_mu: float = 0.0, bucket: int | None = None, *,
-            guard: bool) -> Tuple:
+            guard: bool, obs=NULL_OBS) -> Tuple:
         """Train all K vehicles and aggregate, on the device the global
         parameters lie on.
 
@@ -68,7 +69,9 @@ class FleetEngine:
         the RSU-augmented model (None -> plain weighted FedAvg, kappa2 = 0).
         Returns (new global parameter tree, mean loss per vehicle [K],
         finite mask [K]: which vehicles' updates eq. 4 kept, numpy bool;
-        all true when `guard` is off)."""
+        all true when `guard` is off). `obs` takes three spans: the host
+        stack and the upload, the vmapped SGD (fenced on its output) and
+        eq. 4 with the reads of the losses and the mask."""
         k = len(imgs_list)
         if k == 0:
             raise ValueError("FleetEngine.run needs at least one vehicle")
@@ -76,35 +79,42 @@ class FleetEngine:
         if kb < k:
             raise ValueError(f"bucket {kb} smaller than fleet {k}")
 
-        imgs = np.stack([np.asarray(x, np.float32) for x in imgs_list])
-        labels = np.stack([np.asarray(x, np.int64) for x in labels_list])
-        if kb > k:
-            imgs = np.pad(imgs, ((0, kb - k),) + ((0, 0),) * (imgs.ndim - 1))
-            labels = np.pad(labels,
-                            ((0, kb - k),) + ((0, 0),) * (labels.ndim - 1))
-        leaf = tree_leaves(global_params)[0]
-        imgs = images_to_device(imgs, leaf.device, leaf.dtype)  # [Kb,h,B,C,H,W]
-        labels = labels_to_device(labels, leaf.device)
+        with obs.span("round/aggregate/upload"):
+            imgs = np.stack([np.asarray(x, np.float32) for x in imgs_list])
+            labels = np.stack([np.asarray(x, np.int64) for x in labels_list])
+            if kb > k:
+                imgs = np.pad(imgs,
+                              ((0, kb - k),) + ((0, 0),) * (imgs.ndim - 1))
+                labels = np.pad(labels,
+                                ((0, kb - k),) + ((0, 0),) * (labels.ndim - 1))
+            leaf = tree_leaves(global_params)[0]
+            imgs = images_to_device(imgs, leaf.device,
+                                    leaf.dtype)            # [Kb,h,B,C,H,W]
+            labels = labels_to_device(labels, leaf.device)
 
-        spec = FlatSpec(global_params)
-        flat = spec.flatten(global_params)
-        if aug_params is None:
-            emd_bar = 0.0              # kappa2 = 0: pure weighted FedAvg
-            aug = torch.zeros_like(flat)
-        else:
-            aug = spec.flatten(aug_params)
-        k1, k2 = kappas(emd_bar)
-        weights = np.zeros(kb, np.float32)
-        weights[:k] = k1 * np.asarray(rhos, np.float64)
+        with obs.span("round/aggregate/sgd") as sp:
+            spec = FlatSpec(global_params)
+            flat = spec.flatten(global_params)
+            if aug_params is None:
+                emd_bar = 0.0          # kappa2 = 0: pure weighted FedAvg
+                aug = torch.zeros_like(flat)
+            else:
+                aug = spec.flatten(aug_params)
 
-        def one_vehicle(bi, bl):
-            return sgd_steps_flat(flat, spec, self.cfg, bi, bl, self.h,
-                                  self.lr, float(prox_mu))
+            def one_vehicle(bi, bl):
+                return sgd_steps_flat(flat, spec, self.cfg, bi, bl, self.h,
+                                      self.lr, float(prox_mu))
 
-        stacked, losses = vmap(one_vehicle)(imgs, labels)
-        new_flat, finite = aggregate_stacked_guarded(
-            stacked, weights, aug, np.float32(k2), fallback=flat,
-            guard=guard)
-        return (spec.unflatten(new_flat),
-                losses[:k].cpu().numpy().mean(axis=1),
-                finite[:k].cpu().numpy())
+            stacked, losses = vmap(one_vehicle)(imgs, labels)
+            sp.sync = stacked
+
+        with obs.span("round/aggregate/eq4"):
+            k1, k2 = kappas(emd_bar)
+            weights = np.zeros(kb, np.float32)
+            weights[:k] = k1 * np.asarray(rhos, np.float64)
+            new_flat, finite = aggregate_stacked_guarded(
+                stacked, weights, aug, np.float32(k2), fallback=flat,
+                guard=guard)
+            return (spec.unflatten(new_flat),
+                    losses[:k].cpu().numpy().mean(axis=1),
+                    finite[:k].cpu().numpy())

@@ -373,7 +373,8 @@ class GenFVRunner:
             plan = plan_round(self.cfg, pending.fleet, self.model_bits,
                               self.cfg.local_steps, b_prev=self.b_prev,
                               svc=self.svc, alpha_override=pending.alpha,
-                              planner=self.run.planner, device=self.device)
+                              planner=self.run.planner, device=self.device,
+                              obs=self.obs)
         return plan
 
     def finish_round(self, pending: PendingRound, plan: RoundPlan) -> RoundLog:
@@ -474,9 +475,11 @@ class GenFVRunner:
                     plan.b_gen if use_fl else cfg.gen_batch * 4,
                     self.classes)
                 self.server.generate(counts, round_idx=t)
-                aug, aug_loss = self.server.train_augmented(
-                    cfg.local_steps * cfg.rsu_steps_factor, cfg.batch_size,
-                    lr=CLIENT_LR)
+                with self.obs.span("round/generate/train", round=t) as tsp:
+                    aug, aug_loss = self.server.train_augmented(
+                        cfg.local_steps * cfg.rsu_steps_factor,
+                        cfg.batch_size, lr=CLIENT_LR)
+                    tsp.sync = aug
                 sp.sync = aug
             if not use_fl:
                 loss = aug_loss
@@ -602,7 +605,7 @@ class GenFVRunner:
                         self.engine, bimgs, blabels, msizes, memds,
                         aug if use_aigc else None, prox_mu,
                         guard=bool(n_poison), rhos=rhos,
-                        kappa_emds=kappa_emds)
+                        kappa_emds=kappa_emds, obs=self.obs)
                     rejected += int((~finite).sum())
                     loss = float(losses[finite].mean()) \
                         if finite.any() else 0.0
@@ -656,14 +659,15 @@ class GenFVRunner:
                        stale_merged, stale_dropped, float(t_round),
                        bcd_iters=plan.bcd_iters,
                        planner_converged=int(plan.converged))
-        self._record_round(log)
+        self._record_round(log, plan.steps)
         self.logs.append(log)
         self.next_round = t + 1
         return log
 
-    def _record_round(self, log: RoundLog) -> None:
-        """Feed the round's diagnostics into the tracer's metrics registry
-        (host reads only; nothing at all on the null path)."""
+    def _record_round(self, log: RoundLog, steps: dict) -> None:
+        """Feed the round's diagnostics, with the planner's loop bodies by
+        part (`RoundPlan.steps`), into the tracer's metrics registry (host
+        reads only; nothing at all on the null path)."""
         obs = self.obs
         if not obs.enabled:
             return
@@ -672,6 +676,8 @@ class GenFVRunner:
         obs.count("planner/converged", log.planner_converged,
                   planner=run.planner)
         obs.count("planner/rounds", 1, planner=run.planner)
+        for part, n in steps.items():
+            obs.count("planner/steps", n, part=part)
         obs.observe("round/selected", log.selected)
         obs.observe("round/t_bar", log.t_bar)
         obs.observe("round/t_round", log.t_round)

@@ -10,6 +10,7 @@ import numpy as np
 
 from repro_torch.core.emd import aggregate, data_weights, kappas, mean_emd
 from repro_torch.fl.client import client_update
+from repro_torch.obs import NULL_OBS
 from repro_torch.tree import FlatSpec
 
 
@@ -47,7 +48,7 @@ class GenFVServer:
     def fleet_round(self, engine, imgs_list: List, labels_list: List,
                     sizes: Sequence[int], emds: Sequence[float],
                     aug_model=None, prox_mu: float = 0.0, *,
-                    guard: bool, rhos=None, kappa_emds=None):
+                    guard: bool, rhos=None, kappa_emds=None, obs=NULL_OBS):
         """Run all selected vehicles' local SGD and the eq. (4) aggregation
         (fl/fleet.py), finiteness-guarded if `guard`; `self.params` is
         rebound to the aggregate. Returns (params, (kappa1, kappa2),
@@ -55,14 +56,15 @@ class GenFVServer:
 
         `rhos` overrides the data weights (the round loop computes them
         jointly over fresh and buffered stale participants); `kappa_emds`
-        takes the kappa2 EMD pool apart from `emds` for the same reason."""
+        takes the kappa2 EMD pool apart from `emds` for the same reason.
+        `obs` takes the fleet step's spans."""
         rhos = data_weights(sizes) if rhos is None \
             else np.asarray(rhos, np.float64)
         emd_bar = mean_emd(emds if kappa_emds is None else kappa_emds) \
             if aug_model is not None else 0.0
         self.params, losses, finite = engine.run(
             self.params, imgs_list, labels_list, rhos, emd_bar, aug_model,
-            prox_mu, guard=guard)
+            prox_mu, guard=guard, obs=obs)
         return self.params, kappas(emd_bar), losses, finite
 
     # ---- merge of one late update -----------------------------------------

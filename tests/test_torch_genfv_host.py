@@ -264,8 +264,8 @@ def test_numpy_plan_round_matches(scenario):
 
 
 def test_genfv_modules_import_with_jax_blocked():
-    """The GenFV slice, chip_smoke.py and profile_genfv.py import neither
-    JAX nor the JAX package."""
+    """The GenFV slice, chip_smoke.py, profile_genfv.py and profile_spans.py
+    import neither JAX nor the JAX package."""
     root = Path(__file__).resolve().parents[1]
     code = (
         "import sys\n"
@@ -278,7 +278,7 @@ def test_genfv_modules_import_with_jax_blocked():
         "import repro_torch.data, repro_torch.models.cnn, repro_torch.convert\n"
         "import repro_torch.configs.genfv_cifar, repro_torch.obs\n"
         f"sys.path.insert(0, {str(root)!r})\n"
-        "import chip_smoke, profile_genfv\n"
+        "import chip_smoke, profile_genfv, profile_spans\n"
         "print('imported')\n")
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -1,7 +1,8 @@
 """The port's tracer, metrics registry and sinks (`repro_torch.obs`), the
 counterparts of the JAX package's tests/test_obs.py contracts: an attached
 tracer is bitwise-neutral, the fault-ledger metrics equal the RoundLogs,
-the spans a run emits carry the reference runner's names and counts, spans
+the spans a run emits carry the reference runner's names and counts (the
+port's own spans inside them, `PORT_SPANS`, fire where they should), spans
 fence CUDA tensors only, traces are Perfetto-loadable and refuse open
 spans, and the library has no bare print and no wall-clock read in the
 round loop."""
@@ -29,9 +30,11 @@ from repro.fl.rounds import GenFVRunner as JRunner  # noqa: E402
 from repro.fl.rounds import RunConfig as JRunConfig  # noqa: E402
 from repro.obs import Obs as JObs  # noqa: E402
 from repro_torch.configs.base import GenFVConfig  # noqa: E402
+from repro_torch.core.planner import SYNC_EVERY  # noqa: E402
 from repro_torch.fl.rounds import GenFVRunner, RunConfig, run_payload  # noqa: E402
-from repro_torch.obs import (METRICS_SCHEMA, NULL_OBS, MetricsRegistry,  # noqa: E402
-                             NullObs, Obs, ProgressLogger, Stopwatch,
+from repro_torch.obs import (METRICS_SCHEMA, NULL_OBS, PORT_METRICS,  # noqa: E402
+                             PORT_SPANS, MetricsRegistry, NullObs, Obs,
+                             ProgressLogger, Stopwatch,
                              list_metrics_artifacts, load_metrics_artifact,
                              log_line, save_metrics_artifact, stopwatch)
 from repro_torch.obs import trace as trace_mod  # noqa: E402
@@ -278,6 +281,30 @@ def _span_counts(obs):
                                if e["ph"] == "X")
 
 
+def _split_port_spans(counts):
+    """(the counts of the spans the reference opens too, of the port's own
+    spans by name)."""
+    ref, port = collections.Counter(), collections.Counter()
+    for (name, stage), n in counts.items():
+        if name in PORT_SPANS:
+            port[name] += n
+        else:
+            ref[(name, stage)] += n
+    return ref, port
+
+
+def _fleet_steps(obs):
+    """Rounds that ran the vectorized fleet step (`fleet/pad_waste` is
+    observed once in each)."""
+    dists = {d["name"]: d for d in obs.metrics.payload()["dists"]}
+    return dists["fleet/pad_waste"]["n"] if "fleet/pad_waste" in dists else 0
+
+
+def _metric_names(obs):
+    p = obs.metrics.payload()
+    return {(c["name"], tuple(sorted(c["tags"]))) for c in p["counters"] + p["gauges"]}
+
+
 def test_span_names_equal_the_reference_runner(tmp_path):
     """The same faulted run (numpy planner, so both plan alike) traced in
     both packages emits the same spans, each as often and with the same
@@ -291,12 +318,18 @@ def test_span_names_equal_the_reference_runner(tmp_path):
         [(l.selected, l.late, l.rejected, l.dropped) for l in tres.logs]
     want, got = _span_counts(jobs), _span_counts(tobs)
     assert ("round/checkpoint", "execute") in got and ("round/aggregate", "compile") in got
+    # the port's own spans time inside layers the reference times only from
+    # outside: set apart, the reference's spans match one for one
+    got, port = _split_port_spans(got)
     assert got == want
-    metric_names = {(c["name"], tuple(sorted(c["tags"]))) for c in
-                    tobs.metrics.payload()["counters"] + tobs.metrics.payload()["gauges"]}
-    ref_names = {(c["name"], tuple(sorted(c["tags"]))) for c in
-                 jobs.metrics.payload()["counters"] + jobs.metrics.payload()["gauges"]}
-    assert metric_names == ref_names
+    fleet_steps = _fleet_steps(tobs)
+    assert 0 < fleet_steps <= FAST["rounds"]
+    assert port == {"round/generate/train": FAST["rounds"],
+                    "round/aggregate/upload": fleet_steps,
+                    "round/aggregate/sgd": fleet_steps,
+                    "round/aggregate/eq4": fleet_steps}
+    metric_names = {m for m in _metric_names(tobs) if m[0] not in PORT_METRICS}
+    assert metric_names == _metric_names(jobs)
 
 
 def test_ddpm_span_names_equal_the_reference_runner(monkeypatch, tmp_path):
@@ -322,12 +355,61 @@ def test_ddpm_span_names_equal_the_reference_runner(monkeypatch, tmp_path):
     assert got[("round/generate/sample", "compile")] >= 1
     assert sum(n for (name, _), n in got.items() if name == "round/generate/sample") == \
         sum(1 for l in tres.logs if l.b_gen > 0)
+    got, port = _split_port_spans(got)
     assert got == want
+    fleet_steps = _fleet_steps(tobs)
+    assert port == {"round/generate/train": FAST["rounds"],
+                    "round/aggregate/upload": fleet_steps,
+                    "round/aggregate/sgd": fleet_steps,
+                    "round/aggregate/eq4": fleet_steps}
     for obs in (jobs, tobs):
         assert obs.metrics.counter_value("gen/images") == sum(l.b_gen for l in tres.logs)
     dists = [{d["name"]: d for d in o.metrics.payload()["dists"]}["gen/pad_waste"]
              for o in (jobs, tobs)]
     assert dists[0] == dists[1]
+
+
+#: the span each of the port's own spans opens inside
+PORT_PARENT = {"round/plan/bandwidth": "round/plan", "round/plan/power": "round/plan",
+               "round/plan/generation": "round/plan", "round/plan/ledger": "round/plan",
+               "round/generate/train": "round/generate",
+               "round/aggregate/upload": "round/aggregate",
+               "round/aggregate/sgd": "round/aggregate",
+               "round/aggregate/eq4": "round/aggregate"}
+
+
+@pytest.mark.parametrize("strategy", ["genfv", "fedavg"])
+def test_port_spans_nest_in_the_round(strategy):
+    """In vectorized rounds with the device planner, each of the port's
+    spans opens inside its parent span: the planner's three once a BCD
+    iteration and the ledger's once a plan, omega_a's once a generating
+    round, the fleet step's three once a fleet step. The planner's steps
+    reach the registry by part, in whole chunks."""
+    assert set(PORT_PARENT) == set(PORT_SPANS)
+    obs = Obs(clock=FakeClock())
+    res = _runner(RunConfig(strategy=strategy, **FAST), obs=obs).train()
+    assert obs.open_spans == 0
+    spans = [e for e in obs.events if e["ph"] == "X"]
+    for e in spans:
+        if e["name"] in PORT_PARENT:
+            assert any(p["name"] == PORT_PARENT[e["name"]] and p["ts"] < e["ts"]
+                       and e["ts"] + e["dur"] < p["ts"] + p["dur"] for p in spans), e
+    count = collections.Counter(e["name"] for e in spans)
+    planned = [l for l in res.logs if l.bcd_iters]
+    iters = sum(l.bcd_iters for l in planned)
+    fleet_steps = _fleet_steps(obs)
+    assert planned and fleet_steps > 0
+    assert {n: count[n] for n in PORT_SPANS} == {
+        "round/plan/bandwidth": iters, "round/plan/power": iters,
+        "round/plan/generation": iters, "round/plan/ledger": len(planned),
+        "round/generate/train": FAST["rounds"] if strategy == "genfv" else 0,
+        "round/aggregate/upload": fleet_steps, "round/aggregate/sgd": fleet_steps,
+        "round/aggregate/eq4": fleet_steps}
+    steps = {part: obs.metrics.counter_value("planner/steps", part=part)
+             for part in ("bandwidth", "bandwidth_redo", "power")}
+    assert steps["bandwidth"] >= SYNC_EVERY * iters and steps["power"] >= SYNC_EVERY * iters
+    assert all(n % SYNC_EVERY == 0 for n in steps.values()), steps
+    assert {m[0] for m in _metric_names(obs)} >= set(PORT_METRICS)
 
 
 # ---------------------------------------------------------------------------

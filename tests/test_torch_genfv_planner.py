@@ -7,6 +7,10 @@ the contract, the same number of BCD iterations. Within the port, batched
 planning is bitwise single planning, and padding to a larger bucket changes
 nothing.
 """
+import collections
+import contextlib
+import types
+
 import jax
 import jax.experimental
 
@@ -17,6 +21,8 @@ if not hasattr(jax.experimental, "enable_x64"):
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs.base import GenFVConfig as JConfig  # noqa: E402
 from repro.core import mobility as j_mob  # noqa: E402
@@ -194,3 +200,163 @@ def test_planner_defaults_to_cuda():
             plan_round(cfg, fleet, MODEL_BITS, 4, alpha_override=_alpha_k(len(fleet), 3, 0))
     with pytest.raises(ValueError, match="unknown planner"):
         plan_round(cfg, fleet, MODEL_BITS, 4, planner="jax")
+
+
+# ---------------------------------------------------------------------------
+# The planner's spans and step counts (`RoundPlan.steps`)
+# ---------------------------------------------------------------------------
+#: host reads of the SUBP1 plans of `_fleets(scenario)`: rounds 0 and 1, each
+#: at MODEL_BITS and MODEL_BITS / 16, b_prev threaded; read before the
+#: planner counted its steps or opened spans, and unchanged by them
+SYNCS = {"highway_free_flow": [53, 111, 47, 107], "platoon": [61, 131, 65, 131],
+         "rush_hour": [57, 103, 73, 93], "sparse_rural": [7, 7, 7, 4],
+         "urban_stop_go": [51, 131, 45, 131], "legacy": [53, 107, 47, 125]}
+#: ATen ops of one loop body at Kp 8 and 16: a bandwidth step with its
+#: one-step projection, a step of the redo (all Kp projection steps), an
+#: SCA power step
+STEP_OPS = {8: {"bandwidth": 132, "bandwidth_redo": 496, "power": 37},
+            16: {"bandwidth": 144, "bandwidth_redo": 1014, "power": 37}}
+
+
+def _subp1_plans(scenario, **kw):
+    cfg = get_scenario(scenario).apply(GenFVConfig()) if scenario != "legacy" \
+        else GenFVConfig()
+    plans, b_prev = [], 0
+    for _, fleet in _fleets(scenario)[2]:
+        for bits in (MODEL_BITS, MODEL_BITS / 16):
+            plans.append(plan_round(cfg, fleet, bits, 4, b_prev=b_prev, planner="torch",
+                                    device="cpu", **kw))
+        b_prev = plans[-1].b_gen
+    return plans
+
+
+@pytest.mark.parametrize("scenario", sorted(SYNCS))
+def test_steps_and_syncs(scenario):
+    """`syncs` keeps its count; `steps` counts whole chunks of SYNC_EVERY
+    bodies, one read each, beside a read a BCD iteration and the ledger's;
+    no projection needs a redo on these fleets."""
+    plans = _subp1_plans(scenario)
+    assert [p.syncs for p in plans] == SYNCS[scenario]
+    for p in plans:
+        s = p.steps
+        assert set(s) == {"bandwidth", "bandwidth_redo", "power"}
+        assert all(n % planner.SYNC_EVERY == 0 for n in s.values()), s
+        assert s["bandwidth_redo"] == 0 and s["bandwidth"] >= planner.SYNC_EVERY * p.bcd_iters
+        assert p.syncs == sum(s.values()) // planner.SYNC_EVERY + p.bcd_iters + 1
+
+
+def test_numpy_and_empty_plans_count_no_steps():
+    cfg = GenFVConfig()
+    fleet = _fleets("legacy", rounds=1)[2][0][1]
+    assert plan_round(cfg, fleet, MODEL_BITS, 4, planner="numpy").steps == {}
+    assert plan_round(cfg, fleet, MODEL_BITS, 4, alpha_override=np.zeros(len(fleet)),
+                      device="cpu").steps == {}
+
+
+def _redo_args():
+    """The forced-redo fleet of test_projection_redo_is_exact."""
+    cfg = GenFVConfig(num_subcarriers=2, bw_l_min=0.15)
+    fleet = _fleets("legacy", seed=5, rounds=1)[2][0][1]
+    consts = selected_consts(cfg, fleet, list(range(8)), 4)
+    return (cfg, MODEL_BITS, consts, 0, DiffusionService(steps=cfg.diffusion_steps),
+            cfg.bcd_eps, cfg.bcd_max_iter)
+
+
+def test_redo_steps_only_where_a_redo_is_forced():
+    got = plan_selected_torch(*_redo_args(), device="cpu")
+    s = got["steps"]
+    assert s["bandwidth_redo"] > 0 and s["bandwidth_redo"] % planner.SYNC_EVERY == 0
+    # each redo reads once more
+    assert got["syncs"] == sum(s.values()) // planner.SYNC_EVERY + got["bcd_iters"] + 1
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("bucket", sorted(STEP_OPS))
+def test_ops_per_step_pinned(monkeypatch, bucket):
+    """Every loop body of one part dispatches the same ATen ops, so the
+    planner's ops a round are `steps` x these counts."""
+    seen = {"bandwidth": set(), "bandwidth_redo": set(), "power": set()}
+    bw, pw = planner._bandwidth_step, planner._power_step
+
+    def counted(part, fn):
+        def wrapped(*a):
+            with _OpCount() as m:
+                out = fn(*a)
+            seen[part(a)].add(m.n)
+            return out
+        return wrapped
+
+    monkeypatch.setattr(planner, "_bandwidth_step", counted(
+        lambda a: "bandwidth" if a[-1] == 1 else "bandwidth_redo", bw))
+    monkeypatch.setattr(planner, "_power_step", counted(lambda a: "power", pw))
+    plan_selected_torch(*_redo_args(), bucket=bucket, device="cpu")
+    assert seen == {k: {v} for k, v in STEP_OPS[bucket].items()}
+
+
+class _Recorder:
+    """Opens spans as the benchmark's recorder does (port_bench/recorder.py):
+    not enabled, a name -> summed time map, `sync` read at exit."""
+    enabled = False
+
+    def __init__(self):
+        self.opened = collections.Counter()
+
+    def span(self, name, key=None, **tags):
+        assert not tags, "tags are built only for an enabled tracer"
+        self.opened[name] += 1
+        return contextlib.nullcontext(types.SimpleNamespace(sync=None))
+
+
+@pytest.mark.parametrize("tracer", ["obs", "recorder"])
+@pytest.mark.parametrize("scenario", ["highway_free_flow", "rush_hour"])
+def test_tracers_leave_plans_bitwise(tracer, scenario):
+    """Plans with a tracer equal the untraced plans bit for bit; the BCD
+    opens its three subproblem spans once an iteration and the ledger's
+    once a plan."""
+    from repro_torch.obs import Obs
+    plain = _subp1_plans(scenario)
+    t = Obs() if tracer == "obs" else _Recorder()
+    traced = _subp1_plans(scenario, obs=t)
+    for a, b in zip(plain, traced):
+        for f in ("l", "phi", "t_mu"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+        for f in ("t_bar", "b_gen", "bcd_iters", "history", "syncs", "steps"):
+            assert getattr(a, f) == getattr(b, f), f
+    iters = sum(p.bcd_iters for p in plain)
+    want = {"round/plan/bandwidth": iters, "round/plan/power": iters,
+            "round/plan/generation": iters, "round/plan/ledger": len(plain)}
+    if tracer == "obs":
+        assert t.open_spans == 0
+        names = [e["name"] for e in t.events if e["ph"] == "X"]
+        assert collections.Counter(names) == want
+        tags = [e["tags"] for e in t.events if e["name"] == "round/plan/power"]
+        assert tags == [{"bcd_iter": i} for p in plain for i in range(p.bcd_iters)]
+    else:
+        assert t.opened == want
+
+
+def test_batched_plans_share_the_batch_counts():
+    """In one batch every plan carries the batch's reads and steps (its own
+    copy), and the BCD's spans open once an iteration of the longest row."""
+    from repro_torch.obs import Obs
+    cfg = get_scenario("rush_hour").apply(GenFVConfig())
+    fleets = [f for _, f in _fleets("rush_hour")[2]]
+    obs = Obs()
+    plans = plan_rounds_batched(cfg, fleets, MODEL_BITS, batches=4, b_prevs=[0, 30],
+                                device="cpu", obs=obs)
+    a, b = plans
+    assert a.steps == b.steps and a.steps is not b.steps and a.syncs == b.syncs
+    iters = max(p.bcd_iters for p in plans)
+    assert a.syncs == sum(a.steps.values()) // planner.SYNC_EVERY + iters + 1
+    names = collections.Counter(e["name"] for e in obs.events if e["ph"] == "X")
+    assert names == {"round/plan/bandwidth": iters, "round/plan/power": iters,
+                     "round/plan/generation": iters, "round/plan/ledger": 1}

@@ -375,7 +375,7 @@ def _forbidden(name):
 def test_port_imports_no_jax_and_no_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serve.py", ROOT / "check_flash_limits.py",
-        ROOT / "profile_genfv.py", ROOT / "ab_genfv_rounds.py",
+        ROOT / "profile_genfv.py", ROOT / "profile_spans.py", ROOT / "ab_genfv_rounds.py",
         ROOT / "genfv_paper_rounds.py", ROOT / "profile_collectives.py",
         ROOT / "ab_flash.py"] + sorted(
         (ROOT / "examples").glob("torch_*.py"))
