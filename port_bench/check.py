@@ -22,6 +22,11 @@ their least:
   reference's change (omega_a's 16 steps on a pool of a few dozen images
   amplify rounding, so neither the difference nor a single leaf's norm is
   a steady number: PERF.md);
+* gen_gap: the images each round added to the program's pool against the
+  generator reference's images for the same labels, round key and weights,
+  as the largest relative L2 distance over the round's images (1 where
+  their counts differ); over every round up to the last sampled one, the
+  rounds whose pool the check rebuilds;
 * aug_loss_gap: the mean loss of omega_a's 16 steps, as the program's
   `train_augmented` returns it, against the reference's, relative; the
   least over the sampled rounds: a step that trains on the wrong images
@@ -43,9 +48,9 @@ import numpy as np
 import torch
 
 from port_bench.reference import model as M
-from port_bench.reference.data import oracle_images
 from port_bench.reference.round import Partitions, eq4, plan_only, run_round, to_device
 from port_bench.reference.solvers import label_schedule
+from port_bench.spec import load_generator
 
 VEHICLE_KEYS = ("x", "v", "phi_max", "f_mem", "f_core", "v_core", "gain_db")
 
@@ -123,6 +128,19 @@ def whole_norm_gap(a, b, p0) -> float:
     return _finite(float(abs(na - nb) / max(nb, 1e-300)))
 
 
+def gen_gap(a, b: np.ndarray) -> float:
+    """max_j |a_j - b_j| / |b_j| over the images of a round, the program's
+    `a` against the reference's `b`; 1 where their counts differ."""
+    a = np.empty((0,) + b.shape[1:], np.float32) if a is None else np.asarray(a)
+    if a.shape != b.shape:
+        return 1.0
+    if not len(b):
+        return 0.0
+    a, b = a.reshape(len(b), -1).astype(np.float64), b.reshape(len(b), -1).astype(np.float64)
+    gaps = np.linalg.norm(a - b, axis=1) / np.maximum(np.linalg.norm(b, axis=1), 1e-30)
+    return _finite(float(np.max(gaps)))
+
+
 def count_gap(n: int, band: tuple) -> float:
     """How far the count n lies outside [sure, sure + ties]."""
     lo, hi = band[:2]
@@ -157,32 +175,57 @@ def numbers(prog: dict, ref: dict, p0, ref_band: tuple) -> dict:
 
 class Reference:
     """The reference's view of one run: the clients' partition of the
-    benchmark's data, the test set on the device, and the generated pool
-    rebuilt round by round from the program's random stream states."""
+    benchmark's data, the test set on the device, the generator reference
+    the configuration names with its weights drawn from the run's seed, and
+    the generated pool rebuilt round by round from the program's plans and
+    random stream states."""
 
-    def __init__(self, cell: dict, train, test, world_seed: int, device):
+    def __init__(self, cell: dict, train, test, world_seed: int, device, seed: int):
         c = cell["c"]
         self.cell, self.device = cell, device
         self.data = Partitions.build(train[0], train[1], cell["classes"],
                                      c["num_vehicles"], c["dirichlet_alpha"], world_seed)
         self.test_x = to_device(test[0], device)
         self.test_y = torch.from_numpy(test[1].astype(np.int64)).to(device)
+        self.block = cell["generator"]
+        self.gen = load_generator(self.block["reference"], cell["dir"])
+        self.gen_params = self.gen.make_params(self.block, seed, device)
+        self._images = {}
 
-    def pool_before(self, rounds: list, i: int):
-        """The generated pool at the start of round i."""
+    def generator(self, t: int, prec=M.FP32, fault=None):
+        """The generate(labels, rng) of round t, for `run_round`."""
+        def generate(labels, rng):
+            return self.gen.generate(self.block, self.gen_params, labels, rng,
+                                     self.cell["world_seed"], t, self.device,
+                                     prec=prec, fault=fault)
+        return generate
+
+    def images(self, rounds: list, i: int, prec=M.FP32, fault=None):
+        """(images, labels) the reference generates for the program's plan of
+        round i, from the stream state where the round's generation starts."""
+        r = rounds[i]
+        key = (i, prec.tf32, fault)
+        if key not in self._images:
+            labels = np.repeat(np.arange(self.cell["classes"]),
+                               label_schedule(int(r["plan"].b_gen), self.cell["classes"]))
+            rng = np.random.default_rng()
+            rng.bit_generator.state = r["rng_generate"]
+            self._images[key] = (self.generator(r["t"], prec, fault)(labels, rng),
+                                 labels.astype(np.int32))
+        return self._images[key]
+
+    def pool_before(self, rounds: list, i: int, prec=M.FP32):
+        """The generated pool at the start of round i, its images generated
+        in `prec`."""
         px = py = None
         if self.cell["strategy"] != "genfv":
             return px, py
-        for r in rounds[:i]:
-            labels = np.repeat(np.arange(self.cell["classes"]),
-                               label_schedule(int(r["plan"].b_gen), self.cell["classes"]))
+        for j in range(i):
+            imgs, labels = self.images(rounds, j, prec)
             if not len(labels):
                 continue
-            rng = np.random.default_rng()
-            rng.bit_generator.state = r["rng_generate"]
-            imgs = oracle_images(self.cell["dataset"], labels, rng)
             px = imgs if px is None else np.concatenate([px, imgs])
-            py = labels.astype(np.int32) if py is None else np.concatenate([py, labels.astype(np.int32)])
+            py = labels if py is None else np.concatenate([py, labels])
         n = 0 if py is None else len(py)
         if n != rounds[i]["pool_n"]:
             raise AssertionError(f"round {i}: the reference's pool holds {n} images, "
@@ -192,8 +235,10 @@ class Reference:
     def round(self, rounds: list, i: int, prec=M.FP32, ft=np.float64, half_batch=()):
         """The reference's round i (`run_round`'s dict)."""
         r = rounds[i]
-        return run_round(self.cell, round_state(r), self.data, self.pool_before(rounds, i),
-                         r["p0"], prec, ft, half_batch=half_batch)
+        return run_round(self.cell, round_state(r), self.data,
+                         self.pool_before(rounds, i, prec), r["p0"], prec, ft,
+                         half_batch=half_batch,
+                         generate=self.generator(r["t"], prec))
 
     def plan(self, rounds: list, i: int) -> dict:
         """The reference's plan of round i alone."""
@@ -207,8 +252,9 @@ class Reference:
 
 
 def check(ref: Reference, rounds: list, picked: list) -> dict:
-    """The numbers of each of the program's rounds `picked`, and the
-    plan_gap and eval_gap of every other round."""
+    """The numbers of each of the program's rounds `picked`, the plan_gap
+    and eval_gap of every other round, and where the strategy generates,
+    the gen_gap of every round up to the last picked."""
     out = {}
     for i, r in enumerate(rounds):
         prog = program_output(r, len(ref.test_y))
@@ -218,6 +264,8 @@ def check(ref: Reference, rounds: list, picked: list) -> dict:
         else:
             out[i] = {"plan_gap": plan_gap(prog["plan"], ref.plan(rounds, i)),
                       "eval_gap": count_gap(prog["correct"], band)}
+        if ref.cell["strategy"] == "genfv" and i <= max(picked, default=-1):
+            out[i]["gen_gap"] = gen_gap(r.get("gen"), ref.images(rounds, i)[0])
     return out
 
 

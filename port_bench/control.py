@@ -16,6 +16,14 @@ check samples, the three numbers of
   (unchanged), one test image more counted correct (eval_plus_one), b_gen
   one more (b_gen_plus_one).
 
+Where the cell's limits name gen_gap, also the generated images of every
+round up to the last sampled one ("gens"): the program's, the control's
+(the generator reference in TF32) and, in the sampled rounds, those of the
+generator reference's planted faults (its FAULTS: for the DDPM a denoising
+step left out, labels moved by one class, another image's noise), each as
+gen_gap against the reference; a fault's numbers in a sampled round are
+the program's with its gen_gap.
+
 One JSON line a seed on standard output. The benchmark's runs do not run
 this; `test_bench_faults.py` runs it at a small size on the CPU and
 `test_bench_card.py` at the cell's own size on a CUDA device.
@@ -39,18 +47,27 @@ def readings(cell: dict, seed: int, seconds: float, device, log=print) -> dict:
     from port_bench import check as chk
     from port_bench.reference.model import Precision
     from port_bench.reference.round import plan_only
+    from port_bench.reference.model import FP32
     from port_bench.runcell import measure
     from port_bench.spec import reference_cell
 
     w = measure(cell, seed, seconds, False, device, time.perf_counter(), log)
     rounds = w["rounds"]
     ref = chk.Reference(reference_cell(cell), w["train"], w["test"],
-                        cell["traffic"]["world_seed"], device)
+                        cell["traffic"]["world_seed"], device, seed)
     tf32 = Precision(tf32=True)
     n_test = len(ref.test_y)
     out = {"seed": seed, "setup_s": w["setup_s"], "rounds": len(rounds),
            "round_ms": 1e3 * w["window_s"] / len(rounds), "picked": {}, "plans": {},
-           "evals": {}}
+           "evals": {}, "gens": {}}
+    last = max(w["picked"], default=-1) if "gen_gap" in cell["limits"] else -1
+    for i in range(last + 1):
+        want = ref.images(rounds, i)[0]
+        out["gens"][i] = {"program": chk.gen_gap(rounds[i].get("gen"), want),
+                          "control": chk.gen_gap(ref.images(rounds, i, tf32)[0], want)}
+        if i in w["picked"]:
+            out["gens"][i].update({f: chk.gen_gap(ref.images(rounds, i, FP32, f)[0], want)
+                                   for f in ref.gen.FAULTS})
     for i, r in enumerate(rounds):
         # every round: the plan (program, float32 control) and the count of
         # test images right (program; the control's TF32 forward pass)
@@ -81,8 +98,15 @@ def readings(cell: dict, seed: int, seconds: float, device, log=print) -> dict:
             band = ref.correct(half["new"])
             as_half = {"plan": half["plan"], "loss": half["loss"], "p1": half["new"],
                        "aug": half["aug"], "aug_loss": half["aug_loss"], "correct": band[2]}
-            return chk.numbers(as_half, base, p0, band)
+            nums = chk.numbers(as_half, base, p0, band)
+            if i in out["gens"]:     # the reference's own images
+                nums["gen_gap"] = 0.0
+            return nums
 
+        program = chk.numbers(prog, base, p0, n_ref)
+        if i in out["gens"]:
+            control["gen_gap"] = out["gens"][i]["control"]
+            program["gen_gap"] = out["gens"][i]["program"]
         faults = {"half_batch": planted(("aug", "vehicles")),
                   "unchanged": chk.numbers(dict(prog, p1=p0, aug=p0 if prog["aug"] is not None
                                                 else None), base, p0, n_ref),
@@ -92,10 +116,13 @@ def readings(cell: dict, seed: int, seconds: float, device, log=print) -> dict:
                                                  base["plan"])}
         if cell["traffic"]["strategy"] == "genfv":
             faults["aug_half_batch"] = planted(("aug",))
+        if i in out["gens"]:
+            faults["unchanged"]["gen_gap"] = program["gen_gap"]
+            faults.update({f: dict(program, gen_gap=out["gens"][i][f]) for f in ref.gen.FAULTS})
         out["picked"][i] = {
             "selected": r["log"].selected, "reference_s": t_ref, "kappa2": base["kappa"][1],
             "pool": r["pool_n"],
-            "program": chk.numbers(prog, base, p0, n_ref),
+            "program": program,
             "control": control,
             "faults": faults,
         }

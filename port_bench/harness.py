@@ -16,8 +16,9 @@ import torch
 
 from port_bench.data import make_datasets
 from port_bench.recorder import Recorder, reduce_profile
+from port_bench.reference.generators import flat
 from port_bench.reference.model import init_params, leaves
-from port_bench.spec import constants
+from port_bench.spec import constants, generator_block, load_generator
 
 
 class ConfigMismatch(RuntimeError):
@@ -28,7 +29,13 @@ def build(cell: dict, seed: int, device, timed: bool, phases=None):
     """The runner of the cell on `device`, with the seed's data and weights,
     its world advanced `burn_in_steps` steps of t_max. Returns (runner,
     recorder, train set, test set); the sets are the benchmark's arrays,
-    (images NHWC float32, labels int32)."""
+    (images NHWC float32, labels int32).
+
+    A configuration with a `generator` block runs that AIGC service, built
+    by `program_generator` on the benchmark's weights, and eq. 48 is priced
+    with the configuration's diffusion_service (no calibration, so b_gen
+    follows the traffic alone). Without the block the runner builds the
+    generator `fl.generator` names."""
     from repro_torch.configs.base import GenFVConfig
     from repro_torch.fl import rounds
     from repro_torch.fl.rounds import GenFVRunner, RunConfig
@@ -46,20 +53,31 @@ def build(cell: dict, seed: int, device, timed: bool, phases=None):
 
     fields = set(GenFVConfig.__dataclass_fields__)
     fl_cfg = GenFVConfig(**{k: v for k, v in config["genfv"].items() if k in fields})
+    c = constants(config, traffic)
+    gen = config.get("generator")
+    kinds, svc, generator = {"generator": config["fl"]["generator"]}, None, None
+    rec = Recorder(device, timed)
+    if gen is not None:
+        from repro_torch.core.generation import DiffusionService
+        kinds = {"generator": gen["kind"], "sampler_steps": gen["sampler_steps"]}
+        svc = DiffusionService(steps=c["diffusion_steps"], d_cycles=c["d_cycles"],
+                               f_rsu=c["f_rsu"])
+        t0 = time.perf_counter()
+        generator = program_generator(generator_block(config), cell["dir"], seed,
+                                      traffic["world_seed"], rec, device)
+        phases["generator"] = time.perf_counter() - t0
     run = RunConfig(dataset=ds["name"], alpha=config["genfv"]["dirichlet_alpha"],
                     rounds=10_000, strategy=traffic["strategy"],
                     train_size=ds["train_size"], test_size=ds["test_size"],
                     width_mult=config["model"]["width_mult"], seed=traffic["world_seed"],
                     vectorized=config["fl"]["vectorized"], scenario=traffic["scenario"],
-                    planner=config["fl"]["planner"], faults=traffic["faults"],
-                    generator=config["fl"]["generator"])
-    rec = Recorder(device, timed)
+                    planner=config["fl"]["planner"], faults=traffic["faults"], **kinds)
     t0 = time.perf_counter()
-    runner = GenFVRunner(run, fl_cfg=fl_cfg, dataset_fn=dataset_fn, obs=rec, device=device)
+    runner = GenFVRunner(run, fl_cfg=fl_cfg, dataset_fn=dataset_fn, obs=rec,
+                         generator=generator, svc=svc, device=device)
     phases["runner"] = time.perf_counter() - t0
 
     # the program runs what the configuration states
-    c = constants(config, traffic)
     wrong = {k: (getattr(runner.cfg, k), c[k]) for k in fields
              if getattr(runner.cfg, k) != c[k]}
     if rounds.CLIENT_LR != config["fl"]["client_lr"] or runner.engine.lr != rounds.CLIENT_LR:
@@ -79,10 +97,47 @@ def build(cell: dict, seed: int, device, timed: bool, phases=None):
     return runner, rec, train, test
 
 
+#: the keys of a generator block that name the service rather than shape it
+BLOCK_NAMES = ("kind", "reference", "sampler_steps", "dataset")
+#: keys of a DDPM block that the program's model spec does not hold, which
+#: the parameter shapes show
+SHAPE_KEYS = ("embed_dim",)
+
+
+def program_generator(block: dict, here, seed: int, run_seed: int, obs, device):
+    """The program's AIGC service as the configuration's generator `block`
+    states it, serving the benchmark's weights, which the block's reference
+    module (under the benchmark's directory `here`) draws from `seed`: the
+    program's own pretraining is not run, since the reference may take no
+    weights the program made. The block's keys that the program's model
+    spec (`DDPM`) holds configure it. Raises ConfigMismatch where the block
+    names another kind or a key the program holds nowhere, or where the
+    program's UNet for that spec has other parameter shapes than the
+    reference module gives for the block."""
+    from repro_torch.diffusion.ddpm import DDPM, make_ddpm
+    from repro_torch.gen.service import BatchedDDPMGenerator
+
+    if block["kind"] != "ddpm":
+        raise ConfigMismatch(f"the program serves no generator {block['kind']!r} with weights")
+    spec = {k: v for k, v in block.items() if k in DDPM.__dataclass_fields__}
+    unknown = sorted(set(block) - set(spec) - set(BLOCK_NAMES) - set(SHAPE_KEYS))
+    if unknown:
+        raise ConfigMismatch(f"the program's DDPM takes no key {unknown}")
+    ddpm = DDPM(**spec)
+    ref = load_generator(block["reference"], here)
+    program = make_ddpm(np.random.default_rng(0), ddpm, device="cpu")
+    if {k: tuple(v.shape) for k, v in flat(program).items()} != flat(ref.param_shapes(block)):
+        raise ConfigMismatch(f"the program's generator parameter shapes differ from "
+                             f"reference {block['reference']!r}'s for the block")
+    return BatchedDDPMGenerator(ref.make_params(block, seed, device), ddpm, seed=run_seed,
+                                sampler_steps=block["sampler_steps"], obs=obs)
+
+
 def warm_up(runner, traffic: dict, device) -> None:
     """Run every shape the traffic reaches once: the planner and the fleet
-    step at each bucket, omega_a's steps, the evaluation. Nothing of the
-    runner's state changes: no random draw, no parameter, no pool."""
+    step at each bucket, the sampler at each of the traffic's sampler
+    buckets, omega_a's steps, the evaluation. Nothing of the runner's state
+    changes: no random draw, no parameter, no pool."""
     from repro_torch.fl.client import local_sgd_steps
     from repro_torch.fl.rounds import CLIENT_LR, PendingRound
 
@@ -101,6 +156,9 @@ def warm_up(runner, traffic: dict, device) -> None:
         labels = np.zeros((cfg.local_steps, cfg.batch_size), np.int64)
         runner.engine.run(params, [imgs] * k, [labels] * k, np.full(k, 1.0 / k),
                           1.0 if genfv else 0.0, params if genfv else None, guard=False)
+    for bucket in traffic.get("sampler_buckets", ()):
+        # the round-keyed sampler draws from no stream of the runner's
+        runner.server.generator.generate(np.zeros(bucket, np.int32), None, round_idx=0)
     if genfv:
         steps = cfg.local_steps * cfg.rsu_steps_factor
         local_sgd_steps(params, runner.cnn_cfg,
@@ -123,7 +181,8 @@ def window(runner, rec: Recorder, seconds: float, cycle: int, profile_rounds=())
     mean loss of its steps, noted as the server hands them back. With
     `profile_rounds`, torch.profiler records the device's kernels over
     those rounds (CUDA activity only: recording the host's operations too
-    would slow the host-bound stages it measures)."""
+    would slow the host-bound stages it measures). A round that generates
+    keeps the images it added to the pool ("gen")."""
     rounds = []
     cur = {}
 
@@ -171,9 +230,11 @@ def window(runner, rec: Recorder, seconds: float, cycle: int, profile_rounds=())
         plan = runner.plan(pending)
         log = runner.finish_round(pending, plan)
         r1 = time.perf_counter()
+        pool = runner.server.pool_imgs
         cur.update(wall_ms=1e3 * (r1 - r0), pending=pending, plan=plan,
                    log=log, p1=runner.server.params, ms=rec.ms,
-                   profiled=prof is not None)
+                   profiled=prof is not None,
+                   gen=None if pool is None else pool[cur["pool_n"]:].copy())
         if rec.intervals is not None:
             rec.intervals.append(("round", r0, r1))
         rounds.append(cur)

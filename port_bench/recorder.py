@@ -3,8 +3,8 @@ reduction of a profiler trace.
 
 `Recorder` opens the runner's spans. With `timed` it synchronizes the device
 at both edges of each span and records its wall milliseconds, so a span
-holds the device work it launched (the method of `chip_smoke.py`'s
-`RoundRecorder`). Without it a span costs a dict lookup. Either way a span's
+holds the device work it launched (`chip_smoke.py` times its rounds with
+it too). Without it a span costs a dict lookup. Either way a span's
 entry can call a hook (the harness notes the random stream's state there),
 and its exit can read what the program hands the span to wait on (`sync`:
 omega_a for round/generate). While a profiler runs the spans' host

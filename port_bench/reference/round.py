@@ -6,8 +6,9 @@ vehicles' positions, speeds, radios, GPUs and data partitions), b_prev, the
 global parameters it starts from, and the state of the round's random
 stream where the program's round starts drawing (selection, generation and
 batches). The reference redoes from there: SUBP1 and SUBP2-4, which
-vehicles stay in coverage, the generated images, omega_a's 16 SGD steps,
-each vehicle's 4, and eq. 4.
+vehicles stay in coverage, the generated images (through the generator
+reference the caller hands it), omega_a's 16 SGD steps, each vehicle's 4,
+and eq. 4.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ import torch
 
 from port_bench.reference import model as M
 from port_bench.reference import solvers as S
-from port_bench.reference.data import oracle_images
 
 
 @dataclass
@@ -101,7 +101,8 @@ def plan_only(cell: dict, state: dict, data: Partitions, ft=np.float64) -> dict:
 
 
 def run_round(cell: dict, state: dict, data: Partitions, pool: tuple, p0,
-              prec: M.Precision = M.FP32, ft=np.float64, *, half_batch=()) -> dict:
+              prec: M.Precision = M.FP32, ft=np.float64, *, generate,
+              half_batch=()) -> dict:
     """The reference's round. `cell` holds the constants ("c"), the model
     dict ("model"), the dataset name, classes, strategy, h, B, the RSU's
     step factor and the client learning rate. `state` holds "fleet" (list
@@ -109,7 +110,9 @@ def run_round(cell: dict, state: dict, data: Partitions, pool: tuple, p0,
     generator states). `pool` is the generated pool (images, labels) before
     the round. `half_batch` names the planted fault of the check's
     readings: the SGD steps of omega_a ("aug") or of the vehicles
-    ("vehicles") see the first half of each batch. Returns the plan,
+    ("vehicles") see the first half of each batch. `generate(labels, rng)`
+    gives the round's images, drawing from `rng` where the generator draws
+    from the round's stream; it runs under `prec`. Returns the plan,
     omega_a (None without generation) and the mean of its step losses, the
     vehicles' models, their weights rho, (kappa1, kappa2), the mean of the
     vehicles' step losses, the new global tree ("new") and the pool after."""
@@ -127,7 +130,7 @@ def run_round(cell: dict, state: dict, data: Partitions, pool: tuple, p0,
             labels = np.repeat(np.arange(cell["classes"]),
                                S.label_schedule(plan["b_gen"], cell["classes"]))
             if len(labels):
-                imgs = oracle_images(cell["dataset"], labels, rng)
+                imgs = generate(labels, rng)
                 pool_x = imgs if pool_x is None else np.concatenate([pool_x, imgs])
                 pool_y = (labels.astype(np.int32) if pool_y is None
                           else np.concatenate([pool_y, labels.astype(np.int32)]))

@@ -15,7 +15,7 @@ from port_bench import host
 from port_bench.flops import forward_flops, train_flops
 from port_bench.harness import build, warm_up, window
 from port_bench.peaks import peak
-from port_bench.spec import HERE, reference_cell
+from port_bench.spec import HERE, generator_block, load_generator, reference_cell
 
 #: top-level module names that may not be loaded once the window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -52,15 +52,18 @@ def card_line(device) -> str:
         return "card: power limit not read"
 
 
-def round_record(r: dict, cfg, strategy: str, n_test: int) -> dict:
-    """What the metric readers take of a round."""
+def round_record(r: dict, cfg, strategy: str, n_test: int, image_flops: float = 0.0) -> dict:
+    """What the metric readers take of a round. `image_flops` is one
+    generated image's FLOPs over all its denoising steps."""
     aug = strategy == "genfv" and r["pool_n"] + int(r["plan"].b_gen) >= 2
+    generated = 0 if r.get("gen") is None else len(r["gen"])
     return {"ms": r["ms"], "wall_ms": r["wall_ms"], "selected": r["log"].selected,
             "syncs": r["plan"].syncs, "profiled": r["profiled"],
+            "plan_steps": sum(getattr(r["plan"], "steps", {}).values()),
             "fleet_images": r["log"].selected * cfg.local_steps * cfg.batch_size,
             "aug_images": (cfg.local_steps * cfg.rsu_steps_factor * cfg.batch_size
                            if aug else 0),
-            "eval_images": n_test}
+            "eval_images": n_test, "gen_flops": generated * image_flops}
 
 
 def measure(cell: dict, seed: int, seconds: float, trace: bool, device,
@@ -88,7 +91,10 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device,
     if forbidden_modules():
         raise ForbiddenModules(", ".join(forbidden_modules()))
 
-    records = [round_record(r, runner.cfg, traffic["strategy"], len(test[1]))
+    block = generator_block(cell["config"])
+    image_flops = (block.get("sampler_steps", 0)
+                   * load_generator(block["reference"], cell["dir"]).step_flops(block))
+    records = [round_record(r, runner.cfg, traffic["strategy"], len(test[1]), image_flops)
                for r in rounds]
     picked = chk.sample_rounds(rounds, seed, traffic["checked_rounds"])
     for i, r in enumerate(rounds):          # keep what the check reads
@@ -100,7 +106,8 @@ def measure(cell: dict, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
     log(card_line(device))
     log(f"window: {len(rounds)} rounds in {window_s:.3f} s, selected "
-        f"{[x['selected'] for x in records]}, ms {[round(x['wall_ms'], 1) for x in records]}; "
+        f"{[x['selected'] for x in records]}, b_gen {[int(r['plan'].b_gen) for r in rounds]}, "
+        f"ms {[round(x['wall_ms'], 1) for x in records]}; "
         f"checked rounds {picked}; max_memory_allocated {mem_peak} bytes")
     log("set-up s: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
     log(host.line(before, after, window_s))
@@ -119,7 +126,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
     rounds, records, prof = w["rounds"], w["records"], w["profile"]
 
     ref = chk.Reference(reference_cell(cell), w["train"], w["test"],
-                        traffic["world_seed"], device)
+                        traffic["world_seed"], device, seed)
     limits = cell["limits"]
     per_round = chk.check(ref, rounds, w["picked"])
     verdict = chk.judge(chk.worst(per_round, limits), limits)
@@ -134,8 +141,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device,
         if i in w["picked"]:
             log(f"round {i} (selected {records[i]['selected']}): "
                 + ", ".join(f"{k} {v!r}" for k, v in x.items()))
-    for k in ("plan_gap", "eval_gap"):
-        log(f"{k} by round: " + ", ".join(f"{per_round[i][k]:.3g}" for i in sorted(per_round)))
+    for k in ("plan_gap", "eval_gap", "gen_gap"):
+        if k in limits:
+            log(f"{k} by round: " + ", ".join(f"{per_round[i][k]:.3g}" for i in sorted(per_round)
+                                               if k in per_round[i]))
 
     if trace:
         model = config["model"]

@@ -31,8 +31,8 @@ def test_no_jax(path):
     assert not imported(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((HERE / "reference").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(HERE / "reference")))
 def test_reference_is_apart_from_the_program(path):
     assert "repro_torch" not in imported(path)
     # and no file of the benchmark outside the reference

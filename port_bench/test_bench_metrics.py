@@ -11,25 +11,40 @@ from port_bench.runcell import read_metric
 from port_bench.spec import HERE, ROOT
 
 F, FB = 1.1108e9, 3.3290e9
+#: the 16-wide UNet's forward FLOPs an image and denoising step
+G = 88_653_824
 PEAK = 67e12
 
 
-def rnd(ms, selected, syncs, aug, profiled=False, wall=None):
+def rnd(ms, selected, syncs, aug, profiled=False, wall=None, steps=0, gen_flops=0.0):
     return {"ms": ms, "selected": selected, "syncs": syncs, "profiled": profiled,
-            "fleet_images": selected * 4 * 64, "aug_images": aug, "eval_images": 10000,
+            "plan_steps": steps, "fleet_images": selected * 4 * 64, "aug_images": aug,
+            "eval_images": 10000, "gen_flops": gen_flops,
             "wall_ms": wall if wall is not None else sum(ms.values())}
 
+
+#: one round's sampling: 30 images x 50 steps of the 16-wide UNet
+GEN = 30 * 50 * G
 
 TRACE = {
     "rounds": [
         rnd({"round/fleet": 1.0, "round/select": 0.5, "round/plan": 400.0,
-             "round/generate": 300.0, "round/local_sgd": 8.0, "round/aggregate": 500.0,
-             "round/world_step": 0.5, "round/eval": 340.0}, 10, 50, 1024),
+             "round/plan/bandwidth": 380.0, "round/plan/power": 10.0,
+             "round/generate": 300.0, "round/generate/sample": 15.0,
+             "round/generate/train": 280.0, "round/local_sgd": 8.0,
+             "round/aggregate": 500.0, "round/aggregate/upload": 20.0,
+             "round/aggregate/sgd": 470.0, "round/world_step": 0.5,
+             "round/eval": 340.0}, 10, 50, 1024, steps=500, gen_flops=GEN),
+        # a round that generates nothing opens no sampling span
         rnd({"round/fleet": 3.0, "round/select": 0.5, "round/plan": 600.0,
-             "round/generate": 200.0, "round/local_sgd": 6.0, "round/aggregate": 300.0,
-             "round/world_step": 0.5, "round/eval": 340.0}, 6, 70, 1024),
+             "round/plan/bandwidth": 570.0, "round/plan/power": 20.0,
+             "round/generate": 200.0, "round/generate/train": 190.0,
+             "round/local_sgd": 6.0, "round/aggregate": 300.0,
+             "round/aggregate/upload": 10.0, "round/aggregate/sgd": 280.0,
+             "round/world_step": 0.5, "round/eval": 340.0}, 6, 70, 1024, steps=300),
         # a profiled round: its spans are left out of the span means
-        rnd({"round/plan": 5000.0, "round/aggregate": 5000.0}, 8, 60, 1024, profiled=True),
+        rnd({"round/plan": 5000.0, "round/aggregate": 5000.0}, 8, 60, 1024, profiled=True,
+            steps=400),
     ],
     "profile": {"busy_s": 3.0, "window_s": 5.0},
     "flops": {"forward": F, "train": FB}, "peak_flops": PEAK,
@@ -37,9 +52,12 @@ TRACE = {
 
 EXPECT = {
     "host_ms": (10.0 + 10.0) / 2, "plan_ms": 500.0, "plan_syncs": 60.0,
-    "generate_ms": 250.0, "fleet_step_ms": 400.0, "eval_ms": 340.0,
+    "plan_bandwidth_ms": 475.0, "plan_power_ms": 15.0, "plan_steps": 400.0,
+    "generate_ms": 250.0, "aug_train_ms": 235.0,
+    "fleet_step_ms": 400.0, "fleet_upload_ms": 15.0, "fleet_sgd_ms": 375.0,
+    "eval_ms": 340.0,
     "fleet_mfu": 100 * 16 * 256 * FB / 0.8 / PEAK,
-    "round_mfu": 100 * ((16 * 256 + 2048) * FB + 20000 * F)
+    "round_mfu": 100 * ((16 * 256 + 2048) * FB + 20000 * F + GEN)
     / ((sum(TRACE["rounds"][0]["ms"].values()) + sum(TRACE["rounds"][1]["ms"].values())) / 1e3)
     / PEAK,
     "device_idle_share": 40.0,
@@ -60,7 +78,8 @@ def test_reader_without_data_is_silent(name):
     empty = {"rounds": [rnd({}, 0, 0, 0, profiled=True)], "profile": {},
              "flops": TRACE["flops"], "peak_flops": None}
     got = read_metric(name, empty)
-    assert got is None or (name == "plan_syncs" and got == 0)
+    # a count of the planner's work reads 0 where rounds ran but counted none
+    assert got is None or (name in ("plan_syncs", "plan_steps") and got == 0)
 
 
 def test_every_metric_has_a_reader():
@@ -92,6 +111,32 @@ def test_flops_match_the_flop_counter():
         torch.autograd.grad(M.loss(M.rebuild(params, ps), x, y), ps)
     assert fwd.get_total_flops() == 2 * forward_flops(model)
     assert both.get_total_flops() == 2 * train_flops(model)
+
+
+def test_generator_flops_pinned():
+    """One image's denoising step of the program's DDPM as its runner serves
+    it (base 16), and the oracle's none."""
+    from port_bench.conftest import DDPM_BLOCK
+    from port_bench.spec import load_generator
+    block = DDPM_BLOCK
+    assert load_generator(block["reference"]).step_flops(block) == G
+    assert load_generator("oracle").step_flops(block) == 0.0
+
+
+@pytest.mark.parametrize("base", [8, 16, 24])
+def test_generator_flops_match_the_flop_counter(base):
+    """The UNet's count from its widths equals torch.utils.flop_counter's on
+    the reference's forward pass."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from port_bench.spec import load_generator
+    ddpm = load_generator("ddpm")
+    block = {"base_width": base, "embed_dim": 64, "num_classes": 10}
+    params = ddpm.make_params(block, 0, "cpu")
+    with FlopCounterMode(display=False) as count:
+        ddpm.unet(params, torch.zeros(2, 3, 32, 32), torch.tensor([3, 9]), torch.tensor([1, 2]))
+    assert count.get_total_flops() == 2 * ddpm.step_flops(block)
 
 
 def test_busy_and_gaps():

@@ -73,3 +73,35 @@ def test_forward_is_the_programs():
 def test_tf32_rounding():
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10, -3.0 - 2 ** -12])
     assert M._tf32_round(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10, -3.0]
+
+
+@pytest.mark.parametrize("base", [16, 8])
+def test_ddpm_is_the_programs(base):
+    """The generator reference's DDPM against the program's sampler at the
+    runner's width (base 16) and at the tests' (base 8), 8 strided steps of the 200-step schedule and a
+    few labels, on the benchmark's weights: the same tree, the same noise
+    bit for bit, the same images to float32 rounding. The tolerance, 1e-5
+    of each image's norm, covers eight steps of float32 convolutions and
+    the reference's float64 schedule against the program's float32 one
+    (they read 6e-7 to 8e-7); TF32 reads 8e-4."""
+    from repro_torch.diffusion.ddpm import DDPM
+    from repro_torch.diffusion.unet import init_unet
+    from repro_torch.gen.sampler import image_noise, sample_schedule, strided_timesteps
+    from repro_torch.gen.service import gen_round_key
+
+    from port_bench.check import gen_gap
+    from port_bench.spec import load_generator
+    ref = load_generator("ddpm")
+    block = {"base_width": base, "embed_dim": 256, "timesteps": 200, "beta_min": 1e-4,
+             "beta_max": 0.02, "num_classes": 10, "sampler_steps": 8}
+    program = init_unet(np.random.default_rng(0), 10, base=base, device="cpu")
+    assert {k: tuple(v.shape) for k, v in ref.flat(program).items()} == \
+        ref.flat(ref.param_shapes(block))
+    assert np.array_equal(ref.strided(200, 8), strided_timesteps(200, 8))
+    assert np.array_equal(ref.noise(7, 4, 2, 3, 8), image_noise(gen_round_key(7, 4), 2, 3, 8))
+    params = ref.make_params(block, 2 ** 31 + 5, "cpu")
+    labels = np.array([0, 3, 3, 9, 5])
+    a = sample_schedule(params, DDPM(timesteps=200, num_classes=10, base_width=base),
+                        gen_round_key(7, 4), labels, 8)
+    b = ref.generate(block, params, labels, None, 7, 4, "cpu")
+    assert gen_gap(a, b) < 1e-5
